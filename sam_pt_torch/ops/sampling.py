@@ -1,0 +1,81 @@
+"""Bilinear and neighbourhood sampling (counterpart of
+`sam_pt_tpu/ops/sampling.py`).
+
+`bilinear_sample` gathers the four integer taps around each point and
+blends them, with the JAX package's `clamp` and `zeros` padding modes.
+`separable_neighborhood_sample` samples a regular (dy, dx) grid around
+centres as two small products against bilinear "hat" weight matrices,
+exactly as the JAX package does (grid_sample zero padding, align_corners
+grid convention).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    *, pad_mode: str = "clamp") -> torch.Tensor:
+    """Sample img [B, H, W, C] at pixel coords x, y [B, P] -> [B, P, C] f32.
+
+    pad_mode "clamp" clamps out-of-range taps to the border; "zeros" gives
+    out-of-range taps zero weight.
+    """
+    b, h, w, c = img.shape
+    x = x.float()
+    y = y.float()
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    wx1 = x - x0
+    wy1 = y - y0
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+    if pad_mode == "zeros":
+        wx0 = wx0 * ((x0 >= 0) & (x0 <= w - 1))
+        wx1 = wx1 * ((x1 >= 0) & (x1 <= w - 1))
+        wy0 = wy0 * ((y0 >= 0) & (y0 <= h - 1))
+        wy1 = wy1 * ((y1 >= 0) & (y1 <= h - 1))
+    elif pad_mode != "clamp":
+        raise ValueError(f"unknown pad_mode: {pad_mode}")
+
+    ix0 = x0.long().clamp(0, w - 1)
+    ix1 = x1.long().clamp(0, w - 1)
+    iy0 = y0.long().clamp(0, h - 1)
+    iy1 = y1.long().clamp(0, h - 1)
+    flat = img.reshape(b, h * w, c)
+
+    def tap(iy, ix):
+        idx = (iy * w + ix)[..., None].expand(-1, -1, c)
+        return torch.gather(flat, 1, idx)
+
+    return (tap(iy0, ix0) * (wy0 * wx0)[..., None]
+            + tap(iy0, ix1) * (wy0 * wx1)[..., None]
+            + tap(iy1, ix0) * (wy1 * wx0)[..., None]
+            + tap(iy1, ix1) * (wy1 * wx1)[..., None])
+
+
+def _hat_weights(coords: torch.Tensor, size: int,
+                 zero_pad: bool) -> torch.Tensor:
+    """[...] fractional positions -> [..., size] weights
+    max(0, 1 - |coord - j|); clamped to the range first unless zero_pad."""
+    if not zero_pad:
+        coords = coords.clamp(0.0, float(size - 1))
+    j = torch.arange(size, dtype=torch.float32, device=coords.device)
+    return torch.clamp(1.0 - torch.abs(coords[..., None] - j), min=0.0)
+
+
+def separable_neighborhood_sample(plane: torch.Tensor, cx: torch.Tensor,
+                                  cy: torch.Tensor, dy: torch.Tensor,
+                                  dx: torch.Tensor, *,
+                                  zero_pad: bool = True) -> torch.Tensor:
+    """Bilinear samples of plane [..., H, W] at (cy + dy[p], cx + dx[q]).
+
+    cx, cy: [...] centres in pixel coordinates; dy [Ky], dx [Kx] offsets.
+    Returns [..., Ky, Kx].
+    """
+    h, w = plane.shape[-2], plane.shape[-1]
+    wy = _hat_weights(cy[..., None] + dy, h, zero_pad)  # [..., Ky, H]
+    wx = _hat_weights(cx[..., None] + dx, w, zero_pad)  # [..., Kx, W]
+    tmp = torch.matmul(wy, plane)                      # [..., Ky, W]
+    return torch.matmul(tmp, wx.transpose(-1, -2))     # [..., Ky, Kx]

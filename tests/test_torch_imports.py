@@ -1,0 +1,60 @@
+"""The port imports torch and never jax (nor the JAX package); its kernel modules build nothing
+at import; `chip_smoke.py` refuses to run without a CUDA device."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE_MODULES = [
+    "sam_pt_torch.build",
+    "sam_pt_torch.ops.flash_attention",
+    "sam_pt_torch.ops._cuda",
+    "sam_pt_torch.ops.posemb",
+    "sam_pt_torch.ops.resize",
+    "sam_pt_torch.ops.sampling",
+    "sam_pt_torch.models.sam.image_encoder",
+    "sam_pt_torch.models.sam.prompt_encoder",
+    "sam_pt_torch.models.sam.mask_decoder",
+    "sam_pt_torch.models.sam.sam_model",
+    "sam_pt_torch.models.sam.predictor",
+    "sam_pt_torch.models.tracker.api",
+    "sam_pt_torch.models.tracker.pips.model",
+    "sam_pt_torch.models.tracker.cotracker.model",
+    "sam_pt_torch.models.tracker.cotracker.tracker",
+    "sam_pt_torch.models.sam_pt",
+    "sam_pt_torch.utils.checkpoint",
+    "sam_pt_torch.utils.query_points",
+    "sam_pt_torch.utils.util",
+    "sam_pt_torch.vos_eval.eval",
+]
+
+
+def _run(code: str, cwd: str = ROOT):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert 'flax' not in sys.modules, 'flax was imported'\n"
+            "assert 'sam_pt_tpu' not in sys.modules, 'JAX package imported'\n"
+            "import sam_pt_torch.ops._cuda as c\n"
+            "assert c._LIB is None, 'kernels built at import'\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_needs_a_card():
+    proc = _run("import runpy; runpy.run_path('chip_smoke.py', "
+                "run_name='__main__')")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

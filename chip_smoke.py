@@ -1,14 +1,17 @@
-"""Smoke run of the PyTorch port's main path on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: its kernels, its main
+path, and each later path, each with its own launch counts.
 
     python3 chip_smoke.py            # full run (needs one CUDA card)
-    python3 chip_smoke.py --profile  # full run + stage split and profile
+    python3 chip_smoke.py --profile  # full run + stage splits and profiles
 
 Phases, in order; any failure exits non-zero before the verdict line:
   1. The card's name and power limit (nvidia-smi), torch/CUDA versions.
   2. Build the CUDA kernels from `sam_pt_torch/csrc` (nvcc, sm_90a).
   3. Kernel phase: K1/K2/K3 against their plain PyTorch versions at the
-     main path's shapes in bf16 (seeded inputs), max abs error against a
-     stated tolerance, and CUDA-event times (median of 5 runs).
+     main path's shapes in bf16 (seeded inputs), K4 in both its regimes
+     (ViT-H global width, 64 x 4096 x 80; ViT-H windows, 1600 x 196 x 80),
+     max abs error against a stated tolerance, and CUDA-event times
+     (median of 5 runs).
   4. Slice phase: the port's SamPt (SAM ViT-H + CoTracker, random bf16
      weights from a seeded generator, two output biases set so that points
      are visible and masks pass the IoU gate) over two DAVIS-shaped 480 x 854
@@ -19,6 +22,18 @@ Phases, in order; any failure exits non-zero before the verdict line:
   5. Reference phase: the first video's first encode chunk and first
      decode chunk again, with the kernels' plain versions in place of the
      kernels, against the kernel outputs.
+  6. Query-points phase: the main-path SamPt over a 24 x 1 video given as
+     17 query points on frame 0, with the same checks.
+  7. K4 route phase: one ViT-H-width `Attention` (1280 wide, 16 heads x
+     80, a 64 x 64 grid, 4 frames, bf16, seeded weights) through the
+     raw-qkv route (K2) and its default route (K4): the outputs agree and
+     each kernel launched once.
+  8. Reinit phase: the reinit factory (`build.REINIT_SETTINGS`, the same
+     weights, the last mask-upscaling bias zeroed so that masks are not
+     empty) over a DAVIS-shaped 36-frame x 2-object video with query masks
+     on frames 0 and 12 (so the flipped pass runs): output checks, the
+     horizon windows per direction, launches equal to one encode and to
+     the decode chunks of the windows, and a timed second pass.
 Then one JSON line with the per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -69,6 +84,17 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def relpos_inputs(randn, b, kh, kw, d=80):
+    """K4's operands as the `Attention` default route makes them: split
+    q/k/v [b, N, d] and the two bias einsums over tables [k, k, d]."""
+    q, k, v = (randn(b, kh * kw, d) for _ in range(3))
+    rh, rw = randn(kh, kh, d, std=0.2), randn(kw, kw, d, std=0.2)
+    rq = q.reshape(b, kh, kw, d)
+    bias_h = torch.einsum("bhwc,hkc->bhwk", rq, rh).reshape(b, -1, kh)
+    bias_w = torch.einsum("bhwc,wkc->bhwk", rq, rw).reshape(b, -1, kw)
+    return q, k, v, bias_h.contiguous(), bias_w.contiguous()
+
+
 def kernel_phase(fa, device) -> dict:
     g = torch.Generator(device=device).manual_seed(1)
 
@@ -109,6 +135,15 @@ def kernel_phase(fa, device) -> dict:
                                         **kc),
         lambda: fa.cross_attention_plain(img, tok, tok, kv_valid=valid,
                                          **kc))
+    # K4 from 1024 tokens (flash): 4 frames x 16 heads over 64 x 64 tokens;
+    # below (whole problem per block): 100 windows x 16 heads of 14 x 14.
+    for name, shape in (("relpos", (64, 64, 64)),
+                        ("relpos_window", (1600, 14, 14))):
+        ops = relpos_inputs(randn, *shape)
+        results[name] = (
+            lambda ops=ops: fa.relpos_attention_cuda(*ops, scale=80 ** -0.5),
+            lambda ops=ops: fa.relpos_attention_plain(*ops,
+                                                      scale=80 ** -0.5))
 
     report = {}
     for name, (kernel, plain) in results.items():
@@ -131,9 +166,10 @@ def kernel_phase(fa, device) -> dict:
     return report
 
 
-def make_video(n_frames: int, n_masks: int, seed: int) -> dict:
+def make_video(n_frames: int, n_masks: int, seed: int,
+               query_ts=None) -> dict:
     """DAVIS-shaped synthetic video: random frames, box query masks on
-    frame 0 (the shapes of bench.py's schedule)."""
+    frame 0 or on frames `query_ts` (the shapes of bench.py's schedule)."""
     rng = np.random.default_rng(seed)
     masks = np.zeros((n_masks, H, W), np.float32)
     for i in range(n_masks):
@@ -144,16 +180,21 @@ def make_video(n_frames: int, n_masks: int, seed: int) -> dict:
         "image": rng.integers(0, 255, (n_frames, H, W, 3)).astype(np.uint8),
         "target_hw": (H, W),
         "query_masks": masks,
-        "query_point_timestep": np.zeros((n_masks,), np.float32),
+        "query_point_timestep": np.asarray(
+            query_ts if query_ts is not None else [0] * n_masks, np.float32),
     }
 
 
-def expected_launches(sam_pt) -> dict:
-    enc = sum(-(-t // sam_pt.sam_encode_chunk) for t, _ in VIDEOS)
+def launch_schedule(sam_pt, encodes, decodes) -> dict:
+    """Kernel launches of encode calls over `encodes` frames each and
+    decode calls over `decodes` pairs each: K1 28 and K2 4 per encode
+    chunk, K3 5 per decoder pass and decode chunk, no K4."""
+    ec, dc = sam_pt.sam_encode_chunk, sam_pt.sam_decode_chunk
+    enc = sum(-(-t // ec) for t in encodes)
+    dec = sum(-(-n // min(dc, n)) for n in decodes)
     passes = 2 + sam_pt.iterative_refinement_iterations
-    dec = sum(-(-(t * m) // min(sam_pt.sam_decode_chunk, t * m))
-              for t, m in VIDEOS)
-    return {"window": 28 * enc, "global": 4 * enc, "cross": 5 * passes * dec}
+    return {"window": 28 * enc, "global": 4 * enc, "cross": 5 * passes * dec,
+            "relpos": 0}
 
 
 def bias_for_a_live_run(sam_pt) -> None:
@@ -169,12 +210,23 @@ def bias_for_a_live_run(sam_pt) -> None:
 
 def run_video(sam_pt, video, fuse):
     out = sam_pt.forward(video)
-    n_masks = video["query_masks"].shape[0]
-    masks = fuse(out["logits"], video["query_masks"], [0] * n_masks)
-    return out, masks
+    if "query_masks" in video:
+        gt, ts = video["query_masks"], video["query_point_timestep"]
+    else:  # query points: no ground-truth mask to paste on the query frame
+        n_masks = video["query_points"].shape[0]
+        gt = np.zeros((n_masks, H, W), np.float32)
+        ts = video["query_points"][:, 0, 0]
+    return out, fuse(out["logits"], gt, [int(t) for t in ts])
 
 
-def check_outputs(out, masks, n_frames, n_masks, n_points):
+def check_outputs(out, masks, n_frames, n_masks, n_points, query_ts=None):
+    """Shapes and values of one forward. IoU scores must be finite wherever
+    a prompt was visible, on the frames each object's own pass scored:
+    from its query frame on with re-initialisation (`query_ts`), whose
+    stitch keeps the backward pass's scores unflipped before it, as the
+    JAX package does; every frame otherwise."""
+    from sam_pt_torch.utils.util import PointVisibilityType
+
     shapes = {
         "logits": (n_masks, n_frames, H, W),
         "trajectories": (n_frames, n_masks, n_points, 2),
@@ -188,9 +240,18 @@ def check_outputs(out, masks, n_frames, n_masks, n_points):
     if out["logits"].dtype != torch.float16:
         raise SystemExit("logits are not float16")
     spf = out["scores_per_frame"]
-    visible = ~torch.isneginf(spf)  # -inf marks pairs with no visible prompt
+    rows = torch.arange(n_frames, device=spf.device)[:, None]
+    own = rows >= torch.as_tensor(
+        query_ts if query_ts is not None else [0] * n_masks,
+        device=spf.device)[None, :]
+    visible = ~torch.isneginf(spf) & own  # -inf: no visible prompt
     if not bool(torch.isfinite(spf[visible]).all()) or not bool(visible.any()):
         raise SystemExit("IoU scores not finite where a prompt was visible")
+    kinds = {float(v) for v in PointVisibilityType}
+    found = set(torch.unique(out["visibilities"]).tolist())
+    if not found <= kinds:
+        raise SystemExit(f"visibilities {sorted(found - kinds)} are no "
+                         f"PointVisibilityType")
     if not bool(torch.isfinite(out["trajectories"]).all()):
         raise SystemExit("trajectories not finite")
     logits = out["logits"]
@@ -203,7 +264,8 @@ def check_outputs(out, masks, n_frames, n_masks, n_points):
             f"{tuple(out['trajectories'].shape)}, index masks {masks.shape} "
             f"uint8, {int(visible.sum())}/{visible.numel()} pairs scored, "
             f"{int((~torch.isneginf(logits.flatten(2)).all(-1)).sum())} "
-            f"planes kept by the IoU gate, labels {sorted(np.unique(masks))}")
+            f"planes kept by the IoU gate, labels {sorted(np.unique(masks))}, "
+            f"visibilities {sorted(found)}")
 
 
 def reference_phase(sam_pt, fa, video) -> None:
@@ -259,12 +321,158 @@ def reference_phase(sam_pt, fa, video) -> None:
         raise SystemExit("kernel path disagrees with the plain path")
 
 
+# The two routes of one Attention run the same flash body on the same bf16
+# q, k and v; only the bias einsums differ, in layout ([B, N, H, kh + kw]
+# from the fused qkv against [B*H, N, kh] from split heads), and may round
+# a bias value one bf16 ulp apart.
+ROUTE_REL_L2 = 1e-2
+
+
+def route_phase(fa, device) -> dict:
+    """One ViT-H-width Attention, 4 frames over a 64 x 64 grid in bf16,
+    through the raw-qkv route (K2) and its default route (K4)."""
+    from sam_pt_torch.models.sam.image_encoder import Attention
+
+    g = torch.Generator(device=device).manual_seed(4)
+    c, heads, grid = 1280, 16, 64
+
+    def randn(*shape, std):
+        return std * torch.randn(shape, generator=g, device=device)
+
+    state = {"qkv.weight": randn(3 * c, c, std=c ** -0.5),
+             "qkv.bias": randn(3 * c, std=0.1),
+             "proj.weight": randn(c, c, std=c ** -0.5),
+             "proj.bias": randn(c, std=0.1),
+             "rel_pos_h": randn(2 * grid - 1, c // heads, std=0.2),
+             "rel_pos_w": randn(2 * grid - 1, c // heads, std=0.2)}
+    routes = {}
+    for name, raw in (("raw_qkv", True), ("default", False)):
+        attn = Attention(c, heads, (grid, grid), raw_qkv=raw)
+        attn.load_state_dict(state)
+        routes[name] = attn.to(device, torch.bfloat16).eval()
+    x = randn(4, grid * grid, c, std=1.0).to(torch.bfloat16)
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        outs = {name: attn(x, (grid, grid)) for name, attn in routes.items()}
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        ms = {name: cuda_ms(lambda attn=attn: attn(x, (grid, grid)))
+              for name, attn in routes.items()}
+    ref, got = outs["raw_qkv"].float(), outs["default"].float()
+    rel = float((got - ref).norm() / ref.norm())
+    ok = (rel <= ROUTE_REL_L2 and bool(torch.isfinite(got).all())
+          and launches == {"window": 0, "global": 1, "cross": 0, "relpos": 1})
+    log(f"route: Attention 1280 x 16 heads, 4 x 64 x 64 bf16: K4 route vs "
+        f"K2 route rel_l2 {rel:.3e} (bound {ROUTE_REL_L2:g}), launches "
+        f"{launches}, whole block K2 route {ms['raw_qkv']:.4f} ms, K4 route "
+        f"{ms['default']:.4f} ms {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the K4 route disagrees with the K2 route")
+    return launches
+
+
+def reinit_phase(fa, device, fuse, card: str, profiling: bool) -> None:
+    """The reinit configuration at full width over 36 frames x 2 objects,
+    query masks on frames 0 and 12."""
+    from sam_pt_torch.build import REINIT_SETTINGS, build_sam_pt
+
+    sam_pt = build_sam_pt(device, dtype=torch.bfloat16, seed=0,
+                          **REINIT_SETTINGS)
+    bias_for_a_live_run(sam_pt)
+    # With every weight N(0, 0.02^2) the last upscaling conv's bias
+    # outweighs its input, so every predicted mask is empty and every
+    # re-initialisation samples from an empty mask. Zeroed, the masks cover
+    # part of each frame and the points are re-sampled from them.
+    with torch.no_grad():
+        sam_pt.sam_predictor.model.mask_decoder.output_upscaling[
+            3].bias.zero_()
+    t, m, query_ts = 36, 2, [0, 12]
+    video = make_video(t, m, seed=5, query_ts=query_ts)
+    n_points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
+
+    fa.reset_launch_counts()
+    out, masks = run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    windows = list(sam_pt.reinit_windows)
+    for direction in ("forward", "backward"):
+        log(f"reinit: {direction} windows (start, end, masks): "
+            + ", ".join(f"({a}, {b}, {k})" for d, a, b, k in windows
+                        if d == direction))
+    expected = launch_schedule(sam_pt, [t],
+                               [(b - a) * k for _, a, b, k in windows])
+    log(f"reinit: launches {launches} expected {expected}")
+    if launches != expected or {d for d, *_ in windows} != {"forward",
+                                                             "backward"}:
+        raise SystemExit("reinit: launches or windows differ")
+    log(f"reinit: video {t} frames x {m} objects, query frames {query_ts}: "
+        + check_outputs(out, masks, t, m, n_points, query_ts))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"reinit: timed pass {wall:.3f} s for {t} frames = {t / wall:.3f} "
+        f"frames/s, {len(sam_pt.reinit_windows)} windows, on {card}")
+    if profiling:  # serialized split by stage, then the profiler
+        stages = {}
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return run
+
+        names = ("_encode_all_frames", "_track_points", "_apply_sam",
+                 "extract_query_points")
+        for name in names:
+            setattr(sam_pt, name, timed(name, getattr(sam_pt, name)))
+        t0 = time.perf_counter()
+        run_video(sam_pt, video, fuse)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        for name in names:
+            delattr(sam_pt, name)
+        log(f"profile reinit_{t}x{m}: serialized {total:.4f} s: " + ", ".join(
+            f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in stages.items())
+            + f", rest {total - sum(stages.values()):.4f}")
+        device_profile(f"reinit_{t}x{m}",
+                       lambda: run_video(sam_pt, video, fuse), card)
+    del sam_pt
+    torch.cuda.empty_cache()
+
+
+def query_points_phase(sam_pt, fa, fuse) -> None:
+    """The main-path SamPt over 24 frames given 17 query points of one
+    object on frame 0."""
+    t, n_points = 24, 17
+    rng = np.random.default_rng(7)
+    video = make_video(t, 1, seed=6)
+    del video["query_masks"], video["query_point_timestep"]
+    xy = rng.uniform([60, 30], [420, 140], (1, n_points, 2))
+    video["query_points"] = np.concatenate(
+        [np.zeros((1, n_points, 1)), xy], axis=2).astype(np.float32)
+    fa.reset_launch_counts()
+    out, masks = run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    # the query frame's decode (one pair), then the video's
+    expected = launch_schedule(sam_pt, [t], [1, t])
+    log(f"query points: launches {launches} expected {expected}")
+    if launches != expected:
+        raise SystemExit("query points: launch counts differ")
+    log(f"query points: video {t} frames, {n_points} points on frame 0: "
+        + check_outputs(out, masks, t, 1, n_points))
+
+
 def profile_phase(sam_pt, video, fuse, card: str) -> None:
     """Serialized stage split of one video, then a torch.profiler pass:
-    device time by kernel and the device busy share. The full table goes
-    to chiprun_out/profile_<frames>x<objects>.txt."""
-    from torch.profiler import ProfilerActivity, profile
-
+    device time by kernel and the device busy share."""
     images = video["image"]
     t, h, w, _ = images.shape
     m = video["query_masks"].shape[0]
@@ -293,11 +501,20 @@ def profile_phase(sam_pt, video, fuse, card: str) -> None:
     log(f"profile {t}x{m}: serialized stages (s): " + ", ".join(
         f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
 
+    device_profile(f"{t}x{m}", lambda: run_video(sam_pt, video, fuse), card)
+
+
+def device_profile(label: str, run, card: str) -> None:
+    """One `run()` under torch.profiler: wall, device busy share and the
+    top kernels by device time; the table goes to
+    chiprun_out/profile_<label>.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_video(sam_pt, video, fuse)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -307,7 +524,7 @@ def profile_phase(sam_pt, video, fuse, card: str) -> None:
     found = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
     device_us = float(found.group(1)) * {"us": 1, "ms": 1e3,
                                          "s": 1e6}[found.group(2)]
-    log(f"profile {t}x{m}: wall {wall:.4f} s under the profiler, device "
+    log(f"profile {label}: wall {wall:.4f} s under the profiler, device "
         f"busy {device_us / 1e6:.4f} s = {100 * device_us / 1e6 / wall:.1f}% "
         f"on {card}")
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -319,7 +536,7 @@ def profile_phase(sam_pt, video, fuse, card: str) -> None:
             f"{100 * e.self_device_time_total / device_us:5.1f}% "
             f"x{e.count:<6d} {e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(f"chiprun_out/profile_{t}x{m}.txt", "w") as f:
+    with open(f"chiprun_out/profile_{label}.txt", "w") as f:
         f.write(table)
 
 
@@ -380,9 +597,11 @@ def main() -> int:
     outs = [run_video(sam_pt, v, device_fuse_index_masks) for v in videos]
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
-    expected = expected_launches(sam_pt)
+    expected = launch_schedule(sam_pt, [t for t, _ in VIDEOS],
+                               [t * m for t, m in VIDEOS])
     log(f"slice: launches {launches} expected {expected}")
-    if launches != expected or not all(launches.values()):
+    if launches != expected or not all(
+            launches[k] for k in ("window", "global", "cross")):
         raise SystemExit("launch counts differ from the schedule")
     for (t, m), (out, masks) in zip(VIDEOS, outs):
         log(f"slice: video {t} frames x {m} objects: "
@@ -401,6 +620,11 @@ def main() -> int:
     reference_phase(sam_pt, fa, videos[0])
     if profiling:
         profile_phase(sam_pt, videos[-1], device_fuse_index_masks, card)
+    query_points_phase(sam_pt, fa, device_fuse_index_masks)
+    del sam_pt
+    torch.cuda.empty_cache()
+    route_launches = route_phase(fa, device)
+    reinit_phase(fa, device, device_fuse_index_masks, card, profiling)
 
     meta = {
         "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -409,6 +633,8 @@ def main() -> int:
                    "sam_pt_tpu/ops/flash_attention.py:219"),
         "cross": ("sam_pt_torch/csrc/cross_attention.cu",
                   "sam_pt_tpu/ops/flash_attention.py:381"),
+        "relpos": ("sam_pt_torch/csrc/relpos_attention.cu",
+                   "sam_pt_tpu/ops/flash_attention.py:87"),
     }
     kernels = []
     for key, (source, replaces) in meta.items():
@@ -423,6 +649,12 @@ def main() -> int:
             entry["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
             entry["ms_image_to_token"] = m["ms"]
             entry["plain_ms_image_to_token"] = m["plain_ms"]
+        if key == "relpos":  # launched by the route phase, not the slice
+            m = report["relpos_window"]
+            entry["launches"] = route_launches["relpos"]
+            entry["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
+            entry["ms_window"] = m["ms"]
+            entry["plain_ms_window"] = m["plain_ms"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """Factory for the port's main path (what `bench.py::build_pipeline` builds
 for the JAX package): SAM ViT-H + CoTracker (stride 4, window 8, interp
 384 x 512, 6 iterations, support grid 2 every 12 frames) under `SamPt`
-with the reference's default point configuration.
+with the reference's default point configuration. With
+`**REINIT_SETTINGS` it builds the point re-initialisation configuration of
+`configs/model/sam_pt_reinit.yaml` (`model=sam_pt_reinit`, for long
+videos) at the same widths.
 
 Weights are random, drawn from an explicit generator: every parameter and
 buffer ~ N(0, 0.02^2), in the working dtype, on an explicit device.
@@ -30,6 +33,13 @@ SAM_PT_SETTINGS = dict(
     sam_decode_chunk=48,
     sam_encode_chunk=4,
 )
+# configs/model/sam_pt_reinit.yaml: the main path's settings otherwise.
+REINIT_SETTINGS = dict(
+    use_point_reinit=True,
+    reinit_point_tracker_horizon=24,
+    reinit_horizon=24,
+    reinit_variant="reinit-at-median-of-area-diff",
+)
 
 
 @torch.no_grad()
@@ -46,9 +56,12 @@ def randomize_(module: nn.Module, generator: torch.Generator,
 
 
 def build_sam_pt(device: Union[str, torch.device],
-                 dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> SamPt:
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 **settings) -> SamPt:
     """The main-path SamPt on `device` in `dtype`, with random weights
-    drawn from a generator on `device` seeded with `seed`."""
+    drawn from a generator on `device` seeded with `seed`; `settings`
+    override SAM_PT_SETTINGS (REINIT_SETTINGS for the reinit
+    configuration)."""
     device = torch.device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -63,4 +76,4 @@ def build_sam_pt(device: Union[str, torch.device],
         tracker_model, interp_shape=(384, 512), support_grid_size=2,
         support_grid_every_n_frames=12, iters=6)
     return SamPt(point_tracker=tracker, sam_predictor=SamPredictor(sam),
-                 **SAM_PT_SETTINGS)
+                 **dict(SAM_PT_SETTINGS, **settings))

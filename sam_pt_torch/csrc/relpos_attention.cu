@@ -1,0 +1,78 @@
+// K4: rel-pos attention on split q, k, v with the factored bias given as
+// two per-row tables (bfloat16).
+//
+// Replaces: sam_pt_tpu/ops/flash_attention.py:87 fused_relpos_attention
+// (Pallas kernels _attention_kernel :35 for N >= 1024 and
+// _grouped_attention_kernel :56 below).
+//
+// Computes, per problem b (B = batch * heads; N = kh * kw tokens, D = head
+// dim; key j at (y_j, x_j) = (j / kw, j % kw)):
+//   logit[i, j] = round_bf16(q_i * scale) . k_j  (f32)
+//                 + (bias_h[b, i, y_j] + bias_w[b, i, x_j])
+//   out[i]      = softmax_j(logit[i, :]) . v   (f32 accumulation)
+// with q, k, v [B, N, D] and bias_h [B, N, kh], bias_w [B, N, kw] already
+// rounded to bf16 (two einsums outside the kernel, as the JAX package
+// computes them). The TPU kernel padded D to 128 lanes and added the bias
+// through a one-hot augmentation of q and k (one matmul of width
+// D + kh + kw); here the native D is read (any multiple of 16 up to 128)
+// and each logit adds its two bias values directly.
+//
+// What bounds it on the H100: at ViT-H global width (B = 4 frames x 16
+// heads = 64, N = 4096, D = 80) about 340 GFLOP per call, compute-bound if
+// both products run on the tensor cores, with [B, N, N] f32 logits (4.3 GB)
+// if they were materialised. Below 1024 tokens (ViT-H windows: B = 1600,
+// N = 196) it is ~20 GFLOP on 150 MB of q/k/v, close to the memory
+// traffic of reading them once. Design: the two regimes of the TPU
+// function, on the kernels K1 and K2 use (relpos_kernels.cu), over strided
+// operands:
+//   - N < 1024 and the whole problem fits in shared memory: one block per
+//     problem keeps q, k and v (rows zero-padded to a multiple of 16, 196
+//     -> 208; ~110 KB at D = 80, opt-in dynamic shared memory above 48 KB)
+//     and runs the exact softmax, so p is normalised before it is rounded
+//     to bf16, as in the TPU kernel.
+//   - otherwise: flash-style, one block per 64-row q-tile with its bias
+//     rows staged in shared memory, keys in double-buffered cp.async tiles
+//     of 64, online softmax. p is rounded to bf16 before the division by
+//     the row sum (known only at the end), where the TPU kernel divides
+//     first: the two differ by at most one bf16 rounding of p.
+// Ragged q- and k-tiles are masked in the kernel (the TPU function asserts
+// N % q_tile == 0); the TPU's choice of windows per grid step is a VMEM
+// size choice with no counterpart here.
+
+#include "relpos_kernels.cuh"
+
+// q, k, v, out [b, n, d]; bias_h [b, n, kh]; bias_w [b, n, kw]; all
+// contiguous bfloat16, q/k/v 16-byte aligned; n == kh * kw; d a multiple of
+// 16, at most 128; b at most 65535 (one grid dimension). Returns a
+// cudaError_t.
+extern "C" int sam_relpos_attention(const void* q, const void* k,
+                                    const void* v, const void* bias_h,
+                                    const void* bias_w, void* out, int b,
+                                    int kh, int kw, int d, float scale,
+                                    void* stream) {
+  const int n = kh * kw;
+  if (n < 1 || b < 1 || b > 65535 || d % 16 != 0 || d > 128 ||
+      !sampt::aligned16(q) || !sampt::aligned16(k) || !sampt::aligned16(v))
+    return (int)cudaErrorInvalidValue;
+  typedef __nv_bfloat16 bf16;
+  sampt::RelposArgs a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.x_b = (long)n * d, a.x_h = 0, a.x_r = d;
+  a.bias_h = static_cast<const bf16*>(bias_h);
+  a.bias_w = static_cast<const bf16*>(bias_w);
+  a.bh_b = (long)n * kh, a.bh_h = 0, a.bh_r = kh;
+  a.bw_b = (long)n * kw, a.bw_h = 0, a.bw_r = kw;
+  a.out = static_cast<bf16*>(out);
+  a.o_b = (long)n * d, a.o_h = 0, a.o_r = d;
+  a.kh = kh, a.kw = kw, a.d = d;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1024 &&
+      sampt::WindowLayout(n, d).total <= sampt::kMaxSharedBytes)
+    return sampt::launch_relpos_window(a, 1, b, s);
+  if (sampt::FlashLayout(d, kh + kw).total > sampt::kMaxSharedBytes)
+    return (int)cudaErrorInvalidValue;
+  return sampt::launch_relpos_flash(a, 1, b, s);
+}

@@ -14,9 +14,11 @@ Semantics kept from the JAX package:
     the 64-token grid pads to 70 (25 windows of 14 x 14 per frame), and
     the pad slots are zeroed at every block's attention input, then still
     attended, which reproduces SAM's per-block zero padding.
-  - At real scale (grid >= 32) window blocks run kernel K1 and global
-    blocks kernel K2 (`ops/flash_attention.py`), at the native head dim
-    (80 at ViT-H: no padding to 128). Smaller grids take the plain path.
+  - At real scale (grid >= 32) the blocks take the raw-qkv route: window
+    blocks run kernel K1 and global blocks kernel K2
+    (`ops/flash_attention.py`), at the native head dim (80 at ViT-H: no
+    padding to 128). Smaller grids take the plain path. An `Attention`
+    built on its own runs K4 from 1024 tokens.
 """
 from __future__ import annotations
 
@@ -90,16 +92,27 @@ def rel_pos_table(rel_pos: torch.Tensor, q_size: int,
 
 
 class Attention(nn.Module):
-    """Multi-head attention with decomposed rel-pos over a square token
-    grid given as rows [B, N, C] (N = h * w)."""
+    """Multi-head attention with decomposed rel-pos over a token grid given
+    as rows [B, N, C] (N = h * w).
+
+    `raw_qkv` says which route the weights take, as the JAX module's
+    `padded_head_dim` / `fused_window` do (`image_encoder.py:283-376`):
+      - True (the encoder's blocks at grid >= 32): the kernels read the
+        fused qkv projection, K1 for square windows, K2 from 1024 tokens;
+      - False (the module built on its own, the default): split q/k/v, K4
+        from 1024 tokens, the unfused plain path below.
+    The JAX module sends a default-built module whose head dim is a multiple
+    of 128 lanes to its raw-qkv kernel; that TPU lane condition has no
+    counterpart here, and such a module takes K4 too.
+    """
 
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
-                 use_kernel: bool = False):
+                 raw_qkv: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.scale = self.head_dim ** -0.5
-        self.use_kernel = use_kernel
+        self.raw_qkv = raw_qkv
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(
@@ -108,36 +121,44 @@ class Attention(nn.Module):
             torch.zeros(2 * input_size[1] - 1, self.head_dim))
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-        b, n, c = x.shape
         h, w = hw
-        heads, d = self.num_heads, self.head_dim
+        heads = self.num_heads
         qkv = self.qkv(x)  # [B, N, 3*H*D], last axis laid out (3, H, D)
         rh = rel_pos_table(self.rel_pos_h, h, h).to(qkv.dtype)
         rw = rel_pos_table(self.rel_pos_w, w, w).to(qkv.dtype)
-        if self.use_kernel and h * w >= 1024:
+        if self.raw_qkv and h * w >= 1024:
             out = fa.global_attention(qkv, rh, rw, scale=self.scale, kh=h,
                                       kw=w, heads=heads)
-        elif self.use_kernel:
+        elif self.raw_qkv:
             out = fa.window_attention(qkv, rh, rw, scale=self.scale,
                                       heads=heads)
         else:
-            out = self._plain(qkv, rh, rw, h, w)
+            out = self._split_heads(qkv, rh, rw, h, w)
         return self.proj(out)
 
-    def _plain(self, qkv, rh, rw, h, w):
-        """The JAX package's unfused path (small grids)."""
+    def _split_heads(self, qkv, rh, rw, h, w):
+        """The JAX module's split-q/k/v routes: K4 from 1024 tokens
+        (`:319-344`), the unfused path below (`:345-376`). The bias einsums
+        run in the input dtype."""
         b, n, _ = qkv.shape
         heads, d = self.num_heads, self.head_dim
         x = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
         q, k, v = (t.reshape(b * heads, n, d) for t in x)
-        attn = (q * self.scale) @ k.transpose(-1, -2)
         rq = q.reshape(-1, h, w, d)
         bias_h = torch.einsum("bhwc,hkc->bhwk", rq, rh)
         bias_w = torch.einsum("bhwc,wkc->bhwk", rq, rw)
-        attn = (attn.reshape(-1, h, w, h, w) + bias_h[..., :, None]
-                + bias_w[..., None, :]).reshape(-1, n, n)
-        attn = torch.softmax(attn.float(), dim=-1).to(qkv.dtype)
-        out = (attn @ v).reshape(b, heads, n, d)
+        if n >= 1024:
+            out = fa.relpos_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                bias_h.reshape(-1, n, h).contiguous(),
+                bias_w.reshape(-1, n, w).contiguous(), scale=self.scale)
+        else:
+            attn = (q * self.scale) @ k.transpose(-1, -2)
+            attn = (attn.reshape(-1, h, w, h, w) + bias_h[..., :, None]
+                    + bias_w[..., None, :]).reshape(-1, n, n)
+            attn = torch.softmax(attn.float(), dim=-1).to(qkv.dtype)
+            out = attn @ v
+        out = out.reshape(b, heads, n, d)
         return out.permute(0, 2, 1, 3).reshape(b, n, heads * d)
 
 
@@ -158,10 +179,10 @@ class Block(nn.Module):
     """Pre-norm ViT-det block over token rows [B', N, C]."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 attn_size: Tuple[int, int], use_kernel: bool):
+                 attn_size: Tuple[int, int], raw_qkv: bool):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, attn_size, use_kernel)
+        self.attn = Attention(dim, num_heads, attn_size, raw_qkv)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
@@ -229,11 +250,11 @@ class ImageEncoderViT(nn.Module):
         self.patch_embed = PatchEmbed(embed_dim, patch_size)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, self.grid, self.grid, embed_dim))
-        use_kernel = self.grid >= 32
+        raw_qkv = self.grid >= 32
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio,
                   (self.grid, self.grid) if i in self.global_attn_indexes
-                  else (window_size, window_size), use_kernel)
+                  else (window_size, window_size), raw_qkv)
             for i in range(depth)
         ])
         self.neck = nn.Sequential(

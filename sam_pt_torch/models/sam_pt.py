@@ -1,12 +1,21 @@
-"""SAM-PT orchestrator, device flow without point re-initialisation
-(counterpart of the plain path of `sam_pt_tpu/models/sam_pt.py`).
+"""SAM-PT orchestrator (counterpart of `sam_pt_tpu/models/sam_pt.py`).
 
-Per video: upload once; embed every frame with the batched SAM encoder;
-sample query points from the query masks on the host; track them; build
-fixed-shape padded prompts for every (frame, object) pair on the device;
-decode all pairs in chunks through the decode chain (positives-only pass,
-all-points pass with the mask as input, then box-refinement passes); gate
-by IoU; return device tensors.
+Per video: upload once; embed every frame with the batched SAM encoder
+(once, for every path below); take query masks (sample query points from
+them on the host) or query points (decode each one's query frame with SAM
+into a query mask, as the JAX package does); then
+
+  - without point re-initialisation, the device flow: track the points,
+    build fixed-shape padded prompts for every (frame, object) pair on the
+    device, decode all pairs in chunks through the decode chain
+    (positives-only pass, all-points pass with the mask as input, then
+    box-refinement passes), gate by IoU, return device tensors;
+  - with it (`use_point_reinit`), the host flow of the JAX package: track
+    and decode in horizon windows, re-sample each object's query points
+    from its predicted mask at a frame chosen per `reinit_variant`, over
+    the video and over the time-flipped video, and stitch the two at each
+    object's query frame. The data-dependent control flow runs on the
+    host; tracking and decoding run on the device.
 
 The box-refinement passes run unconditionally: the JAX package stops its
 loop at the exact fixed point, which gives the same output, but on a GPU
@@ -14,7 +23,7 @@ that test costs a host sync per pass.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +45,10 @@ NEG_INF = -float("inf")
 def build_prompts(traj: torch.Tensor, vis: torch.Tensor, n_pos: int,
                   has_neg: bool, add_other: bool):
     """traj [T, M, P, 2], vis [T, M, P] -> points [T, M, N, 2], labels
-    [T, M, N] (1 positive, 0 negative, -1 pad). With `add_other`, every
-    other object's positives join as negatives (pad when invisible)."""
+    [T, M, N] (1 positive, 0 negative, -1 pad), on the device. With
+    `add_other`, every other object's positives join as negatives (pad when
+    invisible), each in its own slot (`SamPt._build_prompts` compacts them
+    on the host instead; the decoder reads the same token set)."""
     t, m, p, _ = traj.shape
     device = traj.device
     visible = vis == 1
@@ -69,13 +80,26 @@ class SamPt:
         positive_points_per_mask: int = 8,
         negative_points_per_mask: int = 1,
         add_other_objects_positive_points_as_negative_points: bool = False,
+        max_other_objects_positive_points: Optional[int] = None,
         point_tracker_mask_batch_size: int = 5,
         iterative_refinement_iterations: int = 0,
+        use_patch_matching_filtering: bool = False,
+        use_point_reinit: bool = False,
+        reinit_point_tracker_horizon: int = 24,
+        reinit_horizon: int = 24,
+        reinit_variant: str = "reinit-at-median-of-area-diff",
+        fail_on_empty_reinit_mask: bool = False,
         sam_decode_chunk: int = 32,
         sam_encode_chunk: int = 4,
         seed: int = 72,
         logits_dtype: torch.dtype = torch.float16,
     ):
+        if use_patch_matching_filtering:
+            raise NotImplementedError(
+                "patch-matching filtering is not ported yet")
+        if reinit_point_tracker_horizon < reinit_horizon:
+            raise ValueError("reinit_point_tracker_horizon must be at least "
+                             "reinit_horizon")
         self.point_tracker = point_tracker
         self.sam_predictor = sam_predictor
         self.sam_iou_threshold = sam_iou_threshold
@@ -85,12 +109,21 @@ class SamPt:
         self.negative_points_per_mask = negative_points_per_mask
         self.add_other_objects_positive_points_as_negative_points = (
             add_other_objects_positive_points_as_negative_points)
+        self.max_other_objects_positive_points = max_other_objects_positive_points
         self.point_tracker_mask_batch_size = point_tracker_mask_batch_size
         self.iterative_refinement_iterations = iterative_refinement_iterations
+        self.use_point_reinit = use_point_reinit
+        self.reinit_point_tracker_horizon = reinit_point_tracker_horizon
+        self.reinit_horizon = reinit_horizon
+        self.reinit_variant = reinit_variant
+        self.fail_on_empty_reinit_mask = fail_on_empty_reinit_mask
         self.sam_decode_chunk = sam_decode_chunk
         self.sam_encode_chunk = sam_encode_chunk
         self.logits_dtype = logits_dtype
         self.rng = np.random.default_rng(seed)
+        # (direction, start, end, tracked masks) of every horizon window the
+        # last re-initialising forward decoded, for inspection.
+        self.reinit_windows: List[Tuple[str, int, int, int]] = []
 
     @property
     def device(self) -> torch.device:
@@ -99,33 +132,49 @@ class SamPt:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, video: Dict) -> Dict:
-        """video: 'image' [T, H, W, 3] uint8 numpy, 'target_hw' (h, w),
-        'query_masks' [M, H, W] and 'query_point_timestep' [M].
+        """video: 'image' [T, H, W, 3] uint8 numpy, 'target_hw' (h, w), and
+        either 'query_masks' [M, H, W] with 'query_point_timestep' [M], or
+        'query_points' [M, P, 3] (t, x, y).
 
         Returns device tensors: logits [M, T, h, w] float16 (-inf planes
-        where a pair was gated), scores [M], scores_per_frame [T, M],
-        trajectories [T, M, P, 2] and visibilities [T, M, P].
+        where a pair was gated or never decoded), scores [M],
+        scores_per_frame [T, M], trajectories [T, M, P, 2] and
+        visibilities [T, M, P].
         """
         images = np.asarray(video["image"])
         if images.dtype != np.uint8:
             raise ValueError("input images must be uint8 (0-255)")
-        if video.get("query_masks") is None:
-            raise NotImplementedError("the port takes query masks only")
         t, h, w, _ = images.shape
         images_dev = torch.from_numpy(images).to(self.device)
         emb = self._encode_all_frames(images_dev)
 
-        query_masks = np.asarray(video["query_masks"], np.float32)
-        timesteps = np.asarray(video["query_point_timestep"], np.float32)
-        query_points = self.extract_query_points(images, query_masks,
-                                                 timesteps)
+        if video.get("query_masks") is not None:
+            if video.get("query_points") is not None:
+                raise ValueError("give query masks or query points, not both")
+            query_masks = np.asarray(video["query_masks"], np.float32)
+            timesteps = np.asarray(video["query_point_timestep"], np.float32)
+            query_points = self.extract_query_points(images, query_masks,
+                                                     timesteps)
+        elif video.get("query_points") is not None:
+            query_points = np.asarray(video["query_points"], np.float32)
+            # The JAX package derives the query masks here for trackers
+            # that keep per-video mask state (SuperGlue, not ported yet).
+            self.extract_query_masks(images, query_points, emb)
+        else:
+            raise ValueError("no query points or masks given")
         n_masks, n_points, _ = query_points.shape
 
-        trajectories, visibilities = self._track_points_device(
-            images_dev, query_points, (h, w))
-        logits, scores_per_frame = self._apply_sam_device(
-            (h, w), trajectories, visibilities, emb)
-        scores = scores_per_frame.mean(dim=0)
+        if self.use_point_reinit:
+            host = self._forward_w_reinit(images, images_dev, emb,
+                                          query_points)
+            trajectories, visibilities, logits, scores, scores_per_frame = (
+                torch.from_numpy(a).to(self.device) for a in host)
+        else:
+            trajectories, visibilities = self._track_points_device(
+                images_dev, query_points, (h, w))
+            logits, scores_per_frame = self._apply_sam_device(
+                (h, w), trajectories, visibilities, emb)
+            scores = scores_per_frame.mean(dim=0)
 
         target_hw = tuple(video["target_hw"])
         if (h, w) != target_hw:
@@ -224,14 +273,29 @@ class SamPt:
 
     def _apply_sam_device(self, hw, trajectories, visibilities, embeddings):
         """Prompts, decode chain, IoU gating and scores for every (frame,
-        mask) pair. Returns (logits [M, T, h, w], scores_per_frame [T, M])."""
+        mask) pair of device trajectories. Prompts are built on the device,
+        or on the host where a cap on other objects' points draws from
+        `self.rng`. Returns (logits [M, T, h, w], scores_per_frame [T, M])."""
+        if (self.add_other_objects_positive_points_as_negative_points
+                and self.max_other_objects_positive_points is not None):
+            points, labels = (
+                torch.from_numpy(a).to(trajectories.device)
+                for a in self._build_prompts(trajectories.cpu().numpy(),
+                                             visibilities.cpu().numpy()))
+        else:
+            points, labels = build_prompts(
+                trajectories, visibilities, self.positive_points_per_mask,
+                self.negative_points_per_mask > 0,
+                self.add_other_objects_positive_points_as_negative_points)
+        return self._decode_prompts(hw, points, labels, embeddings)
+
+    def _decode_prompts(self, hw, points, labels, embeddings):
+        """points [T, M, N, 2], labels [T, M, N] on the device, embeddings
+        [T, g, g, 256] -> (logits [M, T, h, w] in `logits_dtype`, -inf
+        planes where the IoU gate failed or no prompt was visible;
+        scores_per_frame [T, M], -inf where no prompt was visible)."""
         h, w = hw
-        t, m = trajectories.shape[0], trajectories.shape[1]
-        points, labels = build_prompts(
-            trajectories, visibilities, self.positive_points_per_mask,
-            self.negative_points_per_mask > 0,
-            self.add_other_objects_positive_points_as_negative_points)
-        n_prompt = points.shape[2]
+        t, m, n_prompt = labels.shape
         pts_flat = points.reshape(t * m, n_prompt, 2)
         lbl_flat = labels.reshape(t * m, n_prompt)
         emb_flat = torch.arange(t, device=points.device).repeat_interleave(m)
@@ -323,3 +387,254 @@ class SamPt:
         logits = torch.where(passed[:, None, None], logits,
                              torch.full_like(logits, NEG_INF))
         return logits.reshape(t, m, h, w).permute(1, 0, 2, 3)
+
+    # ------------------------------------------------------------------
+    # Query masks from query points, and the host flow of the reinit path
+    # ------------------------------------------------------------------
+    def extract_query_masks(self, images: np.ndarray,
+                            query_points: np.ndarray,
+                            embeddings: torch.Tensor) -> np.ndarray:
+        """Query masks [M, H, W] float32 from query points [M, P, 3]: SAM
+        decodes each mask's query frame from its points, reusing that
+        frame's embedding (`embeddings` [T, g, g, 256] of `images`)."""
+        qidx = torch.as_tensor(query_points[:, 0, 0].astype(np.int64),
+                               device=embeddings.device)
+        # each mask's query frame is its own "frame", with one mask on it
+        traj = query_points[:, None, :, 1:]  # [frames=M, masks=1, P, 2]
+        vis = np.ones(traj.shape[:-1], np.float32)
+        logits, _ = self._apply_sam(traj, vis, embeddings[qidx],
+                                    images.shape[1:3])
+        threshold = self.sam_predictor.model.mask_threshold
+        return (logits[0] > threshold).astype(np.float32)
+
+    def _track_points(self, images_dev, query_points):
+        """`_track_points_device` downloaded: numpy trajectories [T, M, P, 2]
+        and visibilities [T, M, P] float32."""
+        trajectories, visibilities = self._track_points_device(
+            images_dev, query_points, tuple(images_dev.shape[1:3]))
+        return trajectories.cpu().numpy(), visibilities.cpu().numpy()
+
+    def _build_prompts(self, trajectories: np.ndarray,
+                       visibilities: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host prompts: trajectories [T, M, P, 2], visibilities [T, M, P]
+        -> points [T, M, N, 2] float32, labels [T, M, N] int64, with the
+        visible positives of other objects compacted to the front of their
+        slots and, past `max_other_objects_positive_points`, subsampled
+        with `self.rng`."""
+        t, m, p, _ = trajectories.shape
+        n_pos = self.positive_points_per_mask
+        visible = visibilities == 1
+
+        base = np.ones((p,), np.int64)
+        if self.negative_points_per_mask > 0:
+            base[n_pos:] = 0
+        labels = np.where(visible, base[None, None, :], -1).astype(np.int64)
+        points = trajectories.copy()
+
+        if m > 1 and self.add_other_objects_positive_points_as_negative_points:
+            cap = self.max_other_objects_positive_points
+            other_slots = (m - 1) * n_pos if cap is None else cap
+            opts = np.zeros((t, m, other_slots, 2), np.float32)
+            olbl = np.full((t, m, other_slots), -1, np.int64)
+            pos_traj = trajectories[:, :, :n_pos, :]
+            pos_vis = visible[:, :, :n_pos]
+            for mi in range(m):
+                others = [o for o in range(m) if o != mi]
+                coords = pos_traj[:, others].reshape(t, -1, 2)
+                vis = pos_vis[:, others].reshape(t, -1)
+                for fi in range(t):
+                    vc = coords[fi][vis[fi]]
+                    if cap is not None and len(vc) > cap:
+                        idx = self.rng.choice(len(vc), cap, replace=False)
+                        vc = vc[idx]
+                    k = min(len(vc), other_slots)
+                    opts[fi, mi, :k] = vc[:k]
+                    olbl[fi, mi, :k] = 0
+            points = np.concatenate([points, opts], axis=2)
+            labels = np.concatenate([labels, olbl], axis=2)
+        return points.astype(np.float32), labels
+
+    def _apply_sam(self, trajectories: np.ndarray, visibilities: np.ndarray,
+                   embeddings: torch.Tensor, hw: Tuple[int, int]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Every (frame, mask) pair of host trajectories, decoded against
+        the frames' `embeddings` [T, g, g, 256] on the device, with host
+        prompts. Returns logits [M, T, h, w] and scores_per_frame [T, M],
+        numpy float32."""
+        points, labels = (torch.from_numpy(a).to(embeddings.device)
+                          for a in self._build_prompts(trajectories,
+                                                       visibilities))
+        logits, scores_per_frame = self._decode_prompts(hw, points, labels,
+                                                        embeddings)
+        return logits.float().cpu().numpy(), scores_per_frame.cpu().numpy()
+
+    def _forward_w_reinit(self, images, images_dev, embeddings,
+                          query_points):
+        """Point re-initialisation in both temporal directions: the
+        horizon-windowed pass over the video and over the time-flipped
+        video (the encoded frames flipped with it), stitched at each mask's
+        query frame. Returns numpy (trajectories, visibilities, logits
+        [M, T, H, W], scores, scores_per_frame)."""
+        self.reinit_windows = []
+        t = images.shape[0]
+        qts = query_points[:, 0, 0].astype(np.int64)
+        traj_r, vis_r, logits_r, spf_r = self._forward_w_reinit_inner(
+            images, images_dev, embeddings, query_points, "forward")
+        if (qts == 0).all():
+            # Every query starts at frame 0: the backward stitch prefix is
+            # empty, so the flipped pass would be discarded whole.
+            with np.errstate(invalid="ignore"):
+                scores = np.nanmean(spf_r, axis=0)
+            return traj_r, vis_r, logits_r, scores, spf_r
+
+        qp_flipped = query_points.copy()
+        qp_flipped[:, :, 0] = t - query_points[:, :, 0] - 1
+        # torch has no negative strides: the flips are copies.
+        traj_l, vis_l, logits_l, spf_l = self._forward_w_reinit_inner(
+            images[::-1].copy(), torch.flip(images_dev, [0]),
+            torch.flip(embeddings, [0]), qp_flipped, "backward")
+        traj_l, vis_l, logits_l = traj_l[::-1], vis_l[::-1], logits_l[:, ::-1]
+        # As in the JAX package and the reference: the backward pass's
+        # scores_per_frame is stitched without being flipped back.
+        trajectories, visibilities = traj_r.copy(), vis_r.copy()
+        logits, spf = logits_r.copy(), spf_r.copy()
+        before = np.arange(t)[:, None] < qts[None, :]  # [T, M]
+        trajectories[before] = traj_l[before]
+        visibilities[before] = vis_l[before]
+        logits[before.T] = logits_l[before.T]
+        spf[before] = spf_l[before]
+        with np.errstate(invalid="ignore"):
+            scores = np.nanmean(spf, axis=0)
+        return trajectories, visibilities, logits, scores, spf
+
+    def _forward_w_reinit_inner(self, images, images_dev, embeddings,
+                                query_points, direction: str):
+        """One temporal direction: track each mask from its query frame for
+        `reinit_point_tracker_horizon` frames, decode the first
+        `reinit_horizon` of them, and re-sample its query points from the
+        predicted mask of a frame `_choose_reinit_timestep` picks; repeat
+        from there. Embeddings are computed once and sliced per window.
+        REINIT_FAILED is set only on the masks whose re-initialisation
+        failed (`fail_on_empty_reinit_mask`). Returns numpy (trajectories,
+        visibilities, logits [M, T, H, W], scores_per_frame)."""
+        t, h, w, _ = images.shape
+        m, p, _ = query_points.shape
+        trajectories = np.full((t, m, p, 2), np.nan, np.float32)
+        visibilities = np.zeros((t, m, p), np.float32)
+        scores_per_frame = np.full((t, m), np.nan, np.float32)
+        logits = np.full((m, t, h, w), np.nan, np.float32)
+
+        current_qp = query_points.copy()
+        for start in range(int(query_points[:, 0, 0].min()), t):
+            end = min(start + self.reinit_horizon, t)
+            end_tracker = min(start + self.reinit_point_tracker_horizon, t)
+            current_ts = current_qp[:, 0, 0].astype(np.int64)
+            tracked = current_ts == start
+            if not tracked.any():
+                continue
+            qp_i = current_qp[tracked].copy()
+            qp_i[:, :, 0] -= start
+
+            traj_i, vis_i = self._track_points(
+                images_dev[start:end_tracker], qp_i)
+            traj_i = traj_i[:end - start]
+            vis_i = vis_i[:end - start]
+            logits_i, spf_i = self._apply_sam(
+                traj_i, vis_i, embeddings[start:end], (h, w))
+            self.reinit_windows.append(
+                (direction, start, end, int(tracked.sum())))
+            pred_masks_i = logits_i > 0  # [m_i, end - start, h, w]
+
+            logits[tracked, start:end] = logits_i
+            trajectories[start:end, tracked] = traj_i
+            visibilities[start:end, tracked] = vis_i
+            scores_per_frame[start:end, tracked] = spf_i
+            if end == t:
+                continue
+
+            # mask areas per window frame (excluding the start frame)
+            area = pred_masks_i[:, 1:].sum(axis=(2, 3)).astype(np.float64)
+            area[area <= 25] = np.nan
+            if self.reinit_horizon // 4 < area.shape[1]:
+                area[:, :self.reinit_horizon // 4] = np.nan
+            next_ts = self._choose_reinit_timestep(area, pred_masks_i,
+                                                   current_ts, start)
+            # A NaN chosen area means every candidate mask was empty or
+            # tiny. By default the points are re-sampled from it anyway
+            # (the samplers return zeros), as the reference does;
+            # `fail_on_empty_reinit_mask` marks the mask failed instead.
+            if self.fail_on_empty_reinit_mask:
+                with np.errstate(invalid="ignore"):
+                    chosen = area[np.arange(len(next_ts)), next_ts]
+                invalid = np.nan_to_num(chosen, nan=0.0) <= 0
+            else:
+                invalid = np.zeros(len(next_ts), bool)
+
+            tracked_idx = np.nonzero(tracked)[0]
+            if (~invalid).any():
+                q_masks = pred_masks_i[:, 1:][
+                    np.arange(len(next_ts)), next_ts].astype(np.float32)
+                qp_update = self.extract_query_points(
+                    images[start + 1:end], q_masks[~invalid],
+                    next_ts[~invalid].astype(np.float32))
+                valid_idx = tracked_idx[~invalid]
+                current_qp[valid_idx] = qp_update
+                current_qp[valid_idx, :, 0] += start + 1
+            if invalid.any():
+                inv_idx = tracked_idx[invalid]
+                current_qp[inv_idx, :, 0] = t  # never tracked again
+                current_qp[inv_idx, :, 1:] = 0
+                trajectories[end:, inv_idx] = -72
+                visibilities[end:, inv_idx] = float(
+                    PointVisibilityType.REINIT_FAILED)
+                logits[inv_idx, end:] = NEG_INF
+
+        # Frames never reached keep NaN logits: empty masks. np.where and
+        # not np.nan_to_num, which would also turn the -inf sentinels of
+        # gated planes into finite values.
+        logits = np.where(np.isnan(logits), NEG_INF, logits)
+        trajectories = np.where(np.isnan(trajectories), -72.0, trajectories)
+        return trajectories, visibilities, logits, scores_per_frame
+
+    def _choose_reinit_timestep(self, area, pred_masks_i, current_ts, start):
+        """The window frame each mask re-initialises from, per
+        `reinit_variant`; indices count the window's frames after its
+        first. area [m_i, frames - 1] float64 (NaN = not a candidate)."""
+        n = area.shape[0]
+        variant = self.reinit_variant
+        if variant == "reinit-on-horizon-and-sync-masks":
+            nxt = self.reinit_horizon - 1 - 1
+            others = current_ts[current_ts > start]
+            if len(others) > 0:
+                nxt = min(nxt, int(others.min()) - start - 1)
+            return np.full((n,), min(nxt, area.shape[1] - 1), np.int64)
+        if variant == "reinit-at-median-of-area-diff":
+            out = np.zeros((n,), np.int64)
+            for i in range(n):
+                vals = area[i]
+                if np.isnan(vals).all():
+                    continue
+                # the lower median of the finite areas (torch.nanmedian),
+                # not np.nanmedian's mean of the two middle values
+                finite = np.sort(vals[~np.isnan(vals)])
+                med = finite[(finite.size - 1) // 2]
+                out[i] = int(np.where(np.isnan(vals), np.inf,
+                                      np.abs(vals - med)).argmin())
+            return out
+        if variant == "reinit-on-similar-mask-area":
+            target = pred_masks_i[:, 0].sum(axis=(1, 2)).astype(np.float64)
+            diff = np.abs(area - target[:, None])
+            return np.where(np.isnan(diff), np.inf, diff).argmin(axis=1)
+        if variant == "reinit-on-similar-mask-area-and-sync-masks":
+            target = pred_masks_i[:, 0].sum(axis=(1, 2)).astype(np.float64)
+            diff = (np.abs(area - target[:, None])
+                    / np.maximum(target[:, None], 1))
+            per_frame = np.where(np.isnan(diff), 720.0, diff).sum(axis=0)
+            others = current_ts[current_ts > start]
+            if len(others) > 0:
+                sync = int(others.min()) - start - 1
+                if 0 <= sync < len(per_frame):
+                    per_frame[sync] -= 36.0
+            return np.full((n,), int(per_frame.argmin()), np.int64)
+        raise ValueError(f"Unknown reinit variant: {variant}")

@@ -1,4 +1,4 @@
-"""The three attention kernels of the main path, with their plain versions.
+"""The four attention kernels of the port, with their plain versions.
 
 Counterpart of `sam_pt_tpu/ops/flash_attention.py`. Each kernel is written
 by hand in CUDA C++ for Hopper (`sam_pt_torch/csrc/*.cu`, built by
@@ -8,14 +8,16 @@ same rounding points:
   K1 `window_attention`  <- fused_qkv_window_attention (:542), ViT windows
   K2 `global_attention`  <- fused_qkv_relpos_attention (:219), ViT global
   K3 `cross_attention`   <- fused_cross_attention (:381), mask decoder
+  K4 `relpos_attention`  <- fused_relpos_attention (:87), ViT `Attention`
+                            on split q/k/v (its default route)
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises. The kernels take
 bfloat16 (the main path's dtype) at the shapes SAM gives them: head dims a
-multiple of 16 up to 128 for K1/K2, 16 for K3. The wrappers count their
+multiple of 16 up to 128 for K1/K2/K4, 16 for K3. The wrappers count their
 launches in `LAUNCHES` (only the CUDA path counts).
 
-The decomposed rel-pos bias of K1/K2 is computed before the kernel by two
+The decomposed rel-pos bias of K1/K2/K4 is computed before the kernel by two
 einsums in the input dtype (float32 accumulation, one rounding at the
 output), as the JAX package does.
 """
@@ -25,7 +27,7 @@ from typing import Optional
 
 import torch
 
-LAUNCHES = {"window": 0, "global": 0, "cross": 0}
+LAUNCHES = {"window": 0, "global": 0, "cross": 0, "relpos": 0}
 
 
 def reset_launch_counts() -> None:
@@ -289,3 +291,69 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return cross_attention_cuda(q.contiguous(), k.contiguous(),
                                 v.contiguous(), heads=heads, divisor=divisor,
                                 kv_valid=kv_valid)
+
+
+# ---------------------------------------------------------------------------
+# K4: rel-pos attention on split q/k/v
+# ---------------------------------------------------------------------------
+
+def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias_h: torch.Tensor, bias_w: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """Plain PyTorch K4, in groups of problems that bound the [G, N, N] f32
+    logits to 2^28 elements."""
+    b, n, _ = q.shape
+    kh, kw = bias_h.shape[-1], bias_w.shape[-1]
+    dtype = q.dtype
+    ys = torch.arange(n, device=q.device) // kw
+    xs = torch.arange(n, device=q.device) % kw
+    group = max(1, 2 ** 28 // (n * n))
+    outs = []
+    for i in range(0, b, group):
+        sl = slice(i, i + group)
+        qs = (q[sl].float() * _rounded(scale, dtype)).to(dtype).float()
+        logits = qs @ k[sl].float().transpose(-1, -2)  # [G, N, N]
+        logits += bias_h[sl].float()[..., ys] + bias_w[sl].float()[..., xs]
+        p = _softmax_rows(logits).to(dtype).float()
+        outs.append((p @ v[sl].float()).to(dtype))
+    return torch.cat(outs)
+
+
+def relpos_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias_h: torch.Tensor, bias_w: torch.Tensor, *,
+                          scale: float) -> torch.Tensor:
+    """K4 kernel launch (sam_pt_torch/csrc/relpos_attention.cu): the whole
+    problem in shared memory below 1024 tokens, flash from 1024."""
+    from ._cuda import check, library
+
+    _check_cuda("relpos_attention", (q, k, v, bias_h, bias_w))
+    b, n, d = q.shape
+    kh, kw = bias_h.shape[-1], bias_w.shape[-1]
+    if (k.shape != q.shape or v.shape != q.shape or kh * kw != n or d % 16
+            or d > 128 or bias_h.shape != (b, n, kh)
+            or bias_w.shape != (b, n, kw)):
+        raise ValueError(
+            f"relpos_attention: unsupported shapes {tuple(q.shape)}, "
+            f"{tuple(bias_h.shape)}, {tuple(bias_w.shape)}")
+    out = torch.empty_like(q)
+    status = library().sam_relpos_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(),
+        bias_w.data_ptr(), out.data_ptr(), b, kh, kw, d,
+        _rounded(scale, q.dtype), _stream())
+    check(status, "sam_relpos_attention")
+    LAUNCHES["relpos"] += 1
+    return out
+
+
+def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias_h: torch.Tensor, bias_w: torch.Tensor, *,
+                     scale: float) -> torch.Tensor:
+    """Attention with the factored rel-pos bias on split heads.
+
+    q, k, v [B, N, D] (B = batch * heads, N = kh * kw row-major tokens);
+    bias_h [B, N, kh] and bias_w [B, N, kw] with bias(i, j) =
+    bias_h[i, j // kw] + bias_w[i, j % kw]. Returns [B, N, D].
+    """
+    if q.device.type == "cpu":
+        return relpos_attention_plain(q, k, v, bias_h, bias_w, scale=scale)
+    return relpos_attention_cuda(q, k, v, bias_h, bias_w, scale=scale)

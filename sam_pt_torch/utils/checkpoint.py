@@ -2,7 +2,8 @@
 
 The port's modules use the public checkpoint names (`segment_anything` for
 SAM, CoTracker v1 for the tracker), so a real checkpoint loads into them
-with `load_state_dict` as it is. These two functions are the inverses of
+with `load_state_dict` as it is. The SAM and CoTracker functions are the
+inverses of
 `convert_sam_state_dict` and `convert_cotracker_state_dict` in
 `sam_pt_tpu/utils/checkpoint.py`: they take a JAX parameter tree (nested
 dicts of arrays, with or without the top-level "params") and return the
@@ -55,6 +56,30 @@ def _strip_head_pad(qkv_w, qkv_b, proj_w, rel_h, rel_w, head_dim: int):
             rel_h[:, :head_dim], rel_w[:, :head_dim])
 
 
+def attention_state_dict_from_jax(attn: Dict[str, Any], head_dim: int,
+                                  prefix: str = ""
+                                  ) -> Dict[str, torch.Tensor]:
+    """One JAX `Attention`'s params (`qkv`, `proj`, `rel_pos_h`,
+    `rel_pos_w`; with or without the top-level "params") -> the port
+    `Attention`'s state dict, the head-dim pad stripped where the rel-pos
+    width is not `head_dim`."""
+    attn = _root(attn)
+    qkv_w, qkv_b = _np(attn["qkv"]["kernel"]), _np(attn["qkv"]["bias"])
+    proj_w = _np(attn["proj"]["kernel"])
+    rel_h, rel_w = _np(attn["rel_pos_h"]), _np(attn["rel_pos_w"])
+    if rel_h.shape[-1] != head_dim:
+        qkv_w, qkv_b, proj_w, rel_h, rel_w = _strip_head_pad(
+            qkv_w, qkv_b, proj_w, rel_h, rel_w, head_dim)
+    return {
+        f"{prefix}qkv.weight": _t(qkv_w.T),
+        f"{prefix}qkv.bias": _t(qkv_b),
+        f"{prefix}proj.weight": _t(proj_w.T),
+        f"{prefix}proj.bias": _t(attn["proj"]["bias"]),
+        f"{prefix}rel_pos_h": _t(rel_h),
+        f"{prefix}rel_pos_w": _t(rel_w),
+    }
+
+
 def vit_encoder_state_dict_from_jax(enc: Dict[str, Any],
                                     prefix: str = "image_encoder."
                                     ) -> Dict[str, torch.Tensor]:
@@ -77,22 +102,11 @@ def vit_encoder_state_dict_from_jax(enc: Dict[str, Any],
                    for i in range(depth))
     for i in range(depth):
         blk = enc[f"blocks_{i}"]
-        attn = blk["attn"]
         dst = f"{prefix}blocks.{i}"
-        qkv_w, qkv_b = _np(attn["qkv"]["kernel"]), _np(attn["qkv"]["bias"])
-        proj_w = _np(attn["proj"]["kernel"])
-        rel_h, rel_w = _np(attn["rel_pos_h"]), _np(attn["rel_pos_w"])
-        if rel_h.shape[-1] != head_dim:
-            qkv_w, qkv_b, proj_w, rel_h, rel_w = _strip_head_pad(
-                qkv_w, qkv_b, proj_w, rel_h, rel_w, head_dim)
         sd[f"{dst}.norm1.weight"] = _t(blk["norm1"]["scale"])
         sd[f"{dst}.norm1.bias"] = _t(blk["norm1"]["bias"])
-        sd[f"{dst}.attn.qkv.weight"] = _t(qkv_w.T)
-        sd[f"{dst}.attn.qkv.bias"] = _t(qkv_b)
-        sd[f"{dst}.attn.proj.weight"] = _t(proj_w.T)
-        sd[f"{dst}.attn.proj.bias"] = _t(attn["proj"]["bias"])
-        sd[f"{dst}.attn.rel_pos_h"] = _t(rel_h)
-        sd[f"{dst}.attn.rel_pos_w"] = _t(rel_w)
+        sd.update(attention_state_dict_from_jax(blk["attn"], head_dim,
+                                                prefix=f"{dst}.attn."))
         sd[f"{dst}.norm2.weight"] = _t(blk["norm2"]["scale"])
         sd[f"{dst}.norm2.bias"] = _t(blk["norm2"]["bias"])
         for name in ("lin1", "lin2"):

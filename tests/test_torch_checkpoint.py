@@ -7,10 +7,12 @@ import torch
 
 import sam_pt_tpu.utils.testing  # noqa: F401  (registers vit_tiny_test)
 from sam_pt_torch.utils.checkpoint import (
+    attention_state_dict_from_jax,
     cotracker_state_dict_from_jax,
     sam_state_dict_from_jax,
 )
 from sam_pt_tpu.utils.checkpoint import (
+    _pad_attn_heads,
     convert_cotracker_state_dict,
     convert_sam_state_dict,
 )
@@ -56,6 +58,26 @@ class TestSamRoundTrip:
             "kernel"][0, 100] = 1.0  # a pad lane of head 0's q
         with pytest.raises(ValueError, match="pad lanes"):
             sam_state_dict_from_jax(params)
+
+
+class TestAttentionRoundTrip:
+    @pytest.mark.parametrize("padded", [False, True])
+    def test_one_attention(self, padded):
+        """One Attention's params, as the JAX module holds them with its
+        defaults or with the head dim padded 80 -> 128 in its weights."""
+        rng = np.random.default_rng(7)
+        c, heads = 160, 2
+        w = [rng.standard_normal(s).astype(np.float32) for s in
+             ((c, 3 * c), (3 * c,), (c, c), (15, 80), (15, 80))]
+        stored = _pad_attn_heads(*w, num_heads=heads) if padded else w
+        proj_b = rng.standard_normal(c).astype(np.float32)
+        params = {"qkv": {"kernel": stored[0], "bias": stored[1]},
+                  "proj": {"kernel": stored[2], "bias": proj_b},
+                  "rel_pos_h": stored[3], "rel_pos_w": stored[4]}
+        _assert_same(attention_state_dict_from_jax(params, 80, prefix="a."), {
+            "a.qkv.weight": w[0].T, "a.qkv.bias": w[1],
+            "a.proj.weight": w[2].T, "a.proj.bias": proj_b,
+            "a.rel_pos_h": w[3], "a.rel_pos_w": w[4]})
 
 
 class TestCoTrackerRoundTrip:

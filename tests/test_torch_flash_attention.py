@@ -1,4 +1,4 @@
-"""The port's K1/K2/K3 plain versions against the JAX kernels (Pallas
+"""The port's K1/K2/K3/K4 plain versions against the JAX kernels (Pallas
 interpret mode on the CPU), and the wrappers' CPU dispatch. The kernels
 themselves are checked against these plain versions on the card by
 test_torch_kernels_cuda.py and chip_smoke.py.
@@ -116,6 +116,30 @@ class TestPlainVersusJax:
             atol=2 ** -9, rtol=2 ** -7)
 
 
+class TestRelposK4PlainVersusJax:
+    @pytest.mark.parametrize("b,kh,kw", [
+        (2, 32, 32),   # N = 1024: the q-tiled regime, square grid
+        (2, 16, 64),   # N = 1024, rectangular grid (key j -> j // 64, j % 64)
+        (4, 14, 14),   # N = 196 < 1024: the grouped-windows regime
+    ])
+    def test_k4(self, b, kh, kw):
+        """K4 at head dim 80 (the JAX kernel pads it to 128 and augments q
+        and k with the bias and one-hot columns; the port reads 80)."""
+        rng = _rng()
+        n, d = kh * kw, 80
+        q, k, v = ((rng.standard_normal((b, n, d)) * 0.5).astype(np.float32)
+                   for _ in range(3))
+        bh = (rng.standard_normal((b, n, kh)) * 0.5).astype(np.float32)
+        bw = (rng.standard_normal((b, n, kw)) * 0.5).astype(np.float32)
+        scale = d ** -0.5
+        ref = jfa.fused_relpos_attention(
+            *(jnp.asarray(a) for a in (q, k, v, bh, bw)), scale=scale)
+        got = fa.relpos_attention(
+            *(torch.from_numpy(a) for a in (q, k, v, bh, bw)), scale=scale)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=F32_ATOL, rtol=0)
+
+
 class TestDispatch:
     def test_cpu_tensors_take_the_plain_path(self):
         fa.reset_launch_counts()
@@ -129,7 +153,11 @@ class TestDispatch:
         fa.global_attention(qkv_g, torch.zeros((4, 4, 8)),
                             torch.zeros((4, 4, 8)), scale=0.3, kh=4, kw=4,
                             heads=2)
-        assert fa.LAUNCHES == {"window": 0, "global": 0, "cross": 0}
+        split = torch.zeros((2, 16, 8))
+        fa.relpos_attention(split, split, split, torch.zeros((2, 16, 4)),
+                            torch.zeros((2, 16, 4)), scale=0.3)
+        assert fa.LAUNCHES == {"window": 0, "global": 0, "cross": 0,
+                               "relpos": 0}
 
     def test_kernel_entry_refuses_cpu_tensors(self):
         qkv = torch.zeros((1, 16, 48))
@@ -137,3 +165,8 @@ class TestDispatch:
         with pytest.raises(ValueError):
             fa.window_attention_cuda(qkv, bias, scale=0.3, heads=2)
         assert fa.LAUNCHES["window"] == 0
+        split, table = torch.zeros((2, 16, 16)), torch.zeros((2, 16, 4))
+        with pytest.raises(ValueError):
+            fa.relpos_attention_cuda(split, split, split, table, table,
+                                     scale=0.3)
+        assert fa.LAUNCHES["relpos"] == 0

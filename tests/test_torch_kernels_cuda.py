@@ -1,6 +1,6 @@
-"""The port's CUDA kernels K1/K2/K3 against their plain PyTorch versions on
-the card, in bfloat16 at the main path's shapes (ViT-H windows and global
-blocks, 48 decoder pairs). Needs a CUDA device; skipped without one. This
+"""The port's CUDA kernels K1/K2/K3/K4 against their plain PyTorch versions
+on the card, in bfloat16 at the main path's shapes (ViT-H windows and global
+blocks, 48 decoder pairs; K4 at ViT-H global width and over ViT-H windows). Needs a CUDA device; skipped without one. This
 file imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -8,7 +8,8 @@ file imports no jax, so it also runs where only PyTorch is installed:
 Tolerance, as in chip_smoke.py: |got - ref| <= 1e-2 + 2^-6 |ref|. Both
 sides round the output to bf16 (one ulp is up to 2^-7 relative), and K2's
 online softmax rounds p before normalising, so two ulps, plus 1e-2 for
-values near zero.
+values near zero. K4's two routes through one `Attention` agree within
+1e-2 relative L2 (the same body, bias einsums in two layouts).
 """
 import pytest
 import torch
@@ -67,6 +68,42 @@ class TestKernelsOnCard:
         _close(fa.cross_attention_cuda(img, tok, tok,
                                        kv_valid=valid.to(torch.uint8), **kw),
                fa.cross_attention_plain(img, tok, tok, kv_valid=valid, **kw))
+
+    @pytest.mark.parametrize("b,kh,kw", [(64, 64, 64), (1600, 14, 14),
+                                         (2, 16, 70)])
+    def test_relpos_k4(self, gen, b, kh, kw):
+        """The flash regime (ViT-H global width; a rectangle with a ragged
+        last q- and k-tile) and the whole-window regime (ViT-H windows)."""
+        d = 80
+        q, k, v = (_randn(gen, b, kh * kw, d) for _ in range(3))
+        rq = q.reshape(b, kh, kw, d)
+        bias_h = torch.einsum("bhwc,hkc->bhwk", rq,
+                              _randn(gen, kh, kh, d, std=0.2))
+        bias_w = torch.einsum("bhwc,wkc->bhwk", rq,
+                              _randn(gen, kw, kw, d, std=0.2))
+        ops = (q, k, v, bias_h.reshape(b, -1, kh).contiguous(),
+               bias_w.reshape(b, -1, kw).contiguous())
+        _close(fa.relpos_attention_cuda(*ops, scale=d ** -0.5),
+               fa.relpos_attention_plain(*ops, scale=d ** -0.5))
+
+    def test_attention_default_route_runs_k4(self, gen):
+        from sam_pt_torch.models.sam.image_encoder import Attention
+
+        torch.manual_seed(0)
+        raw = Attention(160, 2, (32, 32), raw_qkv=True)
+        default = Attention(160, 2, (32, 32))
+        with torch.no_grad():
+            for p in raw.parameters():
+                p.normal_(0, 0.1)
+        default.load_state_dict(raw.state_dict())
+        x = _randn(gen, 2, 1024, 160)
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            ref = raw.cuda().bfloat16()(x, (32, 32)).float()
+            got = default.cuda().bfloat16()(x, (32, 32)).float()
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["global"] == 1 and fa.LAUNCHES["relpos"] == 1
+        assert float((got - ref).norm() / ref.norm()) < 1e-2
 
     def test_cuda_tensors_launch_or_raise(self, gen):
         """A CUDA tensor never takes the plain path: the wrapper launches

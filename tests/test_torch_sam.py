@@ -12,10 +12,12 @@ import pytest
 import torch
 
 import sam_pt_tpu.utils.testing as jtesting
+from sam_pt_torch.models.sam.image_encoder import Attention as TAttention
 from sam_pt_torch.models.sam.image_encoder import ImageEncoderViT
 from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
 from sam_pt_torch.models.sam.sam_model import Sam as TSam
 from sam_pt_torch.utils.checkpoint import (
+    attention_state_dict_from_jax,
     sam_state_dict_from_jax,
     vit_encoder_state_dict_from_jax,
 )
@@ -25,6 +27,7 @@ from sam_pt_tpu.models.sam.sam_model import Sam as JSam
 from sam_pt_tpu.utils.checkpoint import (
     _convert_vit_encoder,
     _make_put,
+    _pad_attn_heads,
     convert_sam_state_dict,
 )
 from torch_port_helpers import random_sam_state_dict
@@ -66,6 +69,50 @@ class TestImageEncoderAtKernelScale:
         assert got.shape == (1, 32, 32, 256)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4,
                                    rtol=0)
+
+
+class TestAttentionRoutes:
+    @pytest.mark.parametrize("route", ["default", "raw_qkv"])
+    def test_global_attention_block(self, route):
+        """One `Attention` over a 32 x 32 grid (1024 tokens), 2 heads of 80,
+        weights carried by `attention_state_dict_from_jax`. default: both
+        sides built with their defaults, so JAX runs K4 (Pallas, interpret
+        mode) and the port K4's plain version. raw_qkv: JAX with the head
+        dim padded 80 -> 128 in its weights (K2), the port's raw-qkv route
+        (K2's plain version) after the converter strips the pad.
+        Tolerance 2e-4 on outputs of order 1."""
+        h = w = 32
+        c, heads = 160, 2
+        rng = np.random.default_rng(13)
+        x = rng.standard_normal((1, h, w, c)).astype(np.float32)
+        weights = dict(
+            qkv_w=rng.standard_normal((c, 3 * c)) * c ** -0.5,
+            qkv_b=rng.standard_normal(3 * c) * 0.1,
+            proj_w=rng.standard_normal((c, c)) * c ** -0.5,
+            rel_h=rng.standard_normal((2 * h - 1, c // heads)) * 0.1,
+            rel_w=rng.standard_normal((2 * w - 1, c // heads)) * 0.1)
+        weights = {k: v.astype(np.float32) for k, v in weights.items()}
+        proj_b = (rng.standard_normal(c) * 0.1).astype(np.float32)
+        padded = None
+        if route == "raw_qkv":
+            padded = 128
+            weights = dict(zip(weights, _pad_attn_heads(
+                *weights.values(), num_heads=heads)))
+        params = {"params": {
+            "qkv": {"kernel": weights["qkv_w"], "bias": weights["qkv_b"]},
+            "proj": {"kernel": weights["proj_w"], "bias": proj_b},
+            "rel_pos_h": weights["rel_h"], "rel_pos_w": weights["rel_w"]}}
+        ref = jie.Attention(num_heads=heads, input_size=(h, w),
+                            padded_head_dim=padded).apply(
+            jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
+
+        attn = TAttention(c, heads, (h, w), raw_qkv=route == "raw_qkv")
+        attn.load_state_dict(attention_state_dict_from_jax(params, c // heads))
+        with torch.no_grad():
+            got = attn(torch.from_numpy(x).reshape(1, h * w, c), (h, w))
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(ref).reshape(1, h * w, c),
+                                   atol=2e-4, rtol=0)
 
 
 class TestTinySam:

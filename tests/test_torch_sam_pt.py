@@ -13,58 +13,17 @@ order); logits are float16 at the output, so 2e-2 absolute on values of
 order 10, and binary masks / fused labels may differ only at pixels whose
 logits lie within that tolerance of the decision boundary.
 """
-import jax
 import numpy as np
 import pytest
 import torch
 
-import sam_pt_tpu.utils.testing as jtesting
-from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
-from sam_pt_torch.models.sam.sam_model import Sam as TSam
-from sam_pt_torch.models.sam_pt import SamPt as TSamPt
-from sam_pt_torch.models.tracker.cotracker.model import CoTracker as TCoTracker
-from sam_pt_torch.models.tracker.cotracker.tracker import (
-    CoTrackerPointTracker as TTracker,
-)
-from sam_pt_torch.utils.checkpoint import (
-    cotracker_state_dict_from_jax,
-    sam_state_dict_from_jax,
-)
 from sam_pt_torch.vos_eval.eval import device_fuse_index_masks as t_fuse
-from sam_pt_tpu.models.sam.predictor import SamPredictor as JPredictor
-from sam_pt_tpu.models.sam.sam_model import Sam as JSam
-from sam_pt_tpu.models.sam_pt import SamPt as JSamPt
-from sam_pt_tpu.models.tracker.cotracker.model import CoTracker as JCoTracker
-from sam_pt_tpu.models.tracker.cotracker.tracker import (
-    CoTrackerPointTracker as JTracker,
-)
-from sam_pt_tpu.utils.checkpoint import (
-    convert_cotracker_state_dict,
-    convert_sam_state_dict,
-)
 from sam_pt_tpu.vos_eval.eval import device_fuse_index_masks as j_fuse
-from torch_port_helpers import (
-    TINY_COTRACKER,
-    random_cotracker_state_dict,
-    random_sam_state_dict,
-)
+from torch_port_helpers import tiny_sam_pt_pair
 
 torch.set_num_threads(1)
 
 LOGIT_ATOL = 2e-2
-SETTINGS = dict(
-    sam_iou_threshold=0.0,
-    positive_point_selection_method="kmedoids",
-    negative_point_selection_method="mixed",
-    positive_points_per_mask=4,
-    negative_points_per_mask=1,
-    add_other_objects_positive_points_as_negative_points=True,
-    iterative_refinement_iterations=3,
-    sam_decode_chunk=8,
-    sam_encode_chunk=4,
-)
-TRACKER = dict(interp_shape=(32, 40), visibility_threshold=0.5,
-               support_grid_size=2, support_grid_every_n_frames=6, iters=1)
 
 
 def _video():
@@ -83,26 +42,9 @@ def _video():
 
 @pytest.fixture(scope="module")
 def outputs():
-    sam_params = convert_sam_state_dict(random_sam_state_dict(seed=17))
-    cot_sd = random_cotracker_state_dict(seed=18, flow_head_scale=0.05,
-                                         **TINY_COTRACKER)
-    cot_sd["vis_predictor.0.bias"][:] = 2.0  # most points visible
-    cot_params = convert_cotracker_state_dict(cot_sd)
-
-    jtracker = JTracker(params=cot_params, s=4, stride=4, **TRACKER)
-    jtracker.model = JCoTracker(**TINY_COTRACKER)
-    jpredictor = JPredictor(
-        JSam(encoder_variant="vit_tiny_test", image_size=64), sam_params)
-    jsampt = JSamPt(jtracker, jpredictor, **SETTINGS)
+    jsampt, tsampt = tiny_sam_pt_pair()
     video = _video()
     jout = jsampt.forward(dict(video, keep_logits_on_device=True))
-
-    tsam = TSam(jtesting.TINY_VIT, image_size=64)
-    tsam.load_state_dict(sam_state_dict_from_jax(sam_params))
-    tcot = TCoTracker(**TINY_COTRACKER)
-    tcot.load_state_dict(cotracker_state_dict_from_jax(cot_params))
-    tsampt = TSamPt(TTracker(tcot.eval().requires_grad_(False), **TRACKER),
-                    TPredictor(tsam.eval().requires_grad_(False)), **SETTINGS)
     tout = tsampt.forward(video)
     return video, jout, tout
 

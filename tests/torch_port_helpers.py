@@ -7,7 +7,7 @@ them as they are or through `sam_pt_torch.utils.checkpoint`.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,3 +138,76 @@ def random_cotracker_state_dict(seed: int = 0, flow_head_scale: float = 1.0,
 
 def torch_sd(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v.copy()) for k, v in sd.items()}
+
+
+# The tiny SamPt of the orchestrator parity tests: tiny SAM (`vit_tiny_test`,
+# 64-pixel input), the tiny CoTracker (one refinement iteration per window).
+TINY_SAM_PT_SETTINGS = dict(
+    sam_iou_threshold=0.0,
+    positive_point_selection_method="kmedoids",
+    negative_point_selection_method="mixed",
+    positive_points_per_mask=4,
+    negative_points_per_mask=1,
+    add_other_objects_positive_points_as_negative_points=True,
+    iterative_refinement_iterations=3,
+    sam_decode_chunk=8,
+    sam_encode_chunk=4,
+)
+TINY_TRACKER = dict(interp_shape=(32, 40), visibility_threshold=0.5,
+                    support_grid_size=2, support_grid_every_n_frames=6,
+                    iters=1)
+
+
+def tiny_sam_pt_pair(**settings) -> Tuple[object, object]:
+    """(JAX SamPt, port SamPt) on the same random weights (SAM seed 17,
+    CoTracker seed 18 with most points visible), TINY_SAM_PT_SETTINGS
+    updated by `settings`, float32."""
+    import sam_pt_tpu.utils.testing as jtesting
+    from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
+    from sam_pt_torch.models.sam.sam_model import Sam as TSam
+    from sam_pt_torch.models.sam_pt import SamPt as TSamPt
+    from sam_pt_torch.models.tracker.cotracker.model import (
+        CoTracker as TCoTracker,
+    )
+    from sam_pt_torch.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker as TTracker,
+    )
+    from sam_pt_torch.utils.checkpoint import (
+        cotracker_state_dict_from_jax,
+        sam_state_dict_from_jax,
+    )
+    from sam_pt_tpu.models.sam.predictor import SamPredictor as JPredictor
+    from sam_pt_tpu.models.sam.sam_model import Sam as JSam
+    from sam_pt_tpu.models.sam_pt import SamPt as JSamPt
+    from sam_pt_tpu.models.tracker.cotracker.model import (
+        CoTracker as JCoTracker,
+    )
+    from sam_pt_tpu.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker as JTracker,
+    )
+    from sam_pt_tpu.utils.checkpoint import (
+        convert_cotracker_state_dict,
+        convert_sam_state_dict,
+    )
+
+    settings = dict(TINY_SAM_PT_SETTINGS, **settings)
+    sam_params = convert_sam_state_dict(random_sam_state_dict(seed=17))
+    cot_sd = random_cotracker_state_dict(seed=18, flow_head_scale=0.05,
+                                         **TINY_COTRACKER)
+    cot_sd["vis_predictor.0.bias"][:] = 2.0  # most points visible
+    cot_params = convert_cotracker_state_dict(cot_sd)
+
+    jtracker = JTracker(params=cot_params, s=4, stride=4, **TINY_TRACKER)
+    jtracker.model = JCoTracker(**TINY_COTRACKER)
+    jpredictor = JPredictor(
+        JSam(encoder_variant="vit_tiny_test", image_size=64), sam_params)
+    jsampt = JSamPt(jtracker, jpredictor, **settings)
+
+    tsam = TSam(jtesting.TINY_VIT, image_size=64)
+    tsam.load_state_dict(sam_state_dict_from_jax(sam_params))
+    tcot = TCoTracker(**TINY_COTRACKER)
+    tcot.load_state_dict(cotracker_state_dict_from_jax(cot_params))
+    tsampt = TSamPt(
+        TTracker(tcot.eval().requires_grad_(False), **TINY_TRACKER),
+        TPredictor(tsam.eval().requires_grad_(False)), **settings)
+    return jsampt, tsampt

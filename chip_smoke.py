@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero before the verdict line:
      main path's shapes in bf16 (seeded inputs), K4 in both its regimes
      (ViT-H global width, 64 x 4096 x 80; ViT-H windows, 1600 x 196 x 80),
      max abs error against a stated tolerance, and CUDA-event times
-     (median of 5 runs).
+     (median of 5 runs) of the kernel, its plain version and one PyTorch
+     call of the same function (`scaled_dot_product_attention` on
+     head-split views, the rel-pos bias as a materialised mask), beside
+     the kernel's bound (`attention_roofline`).
   4. Slice phase: the port's SamPt (SAM ViT-H + CoTracker, random bf16
      weights from a seeded generator, two output biases set so that points
      are visible and masks pass the IoU gate) over two DAVIS-shaped 480 x 854
@@ -35,7 +38,11 @@ Phases, in order; any failure exits non-zero before the verdict line:
      horizon windows per direction, launches equal to one encode and to
      the decode chunks of the windows, and a timed second pass.
 Then one JSON line with the per-kernel numbers, and as the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. The kernel phase alone:
+
+    python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
+flash_attention as fa, _cuda; _cuda.library(); \
+chip_smoke.kernel_phase(fa, torch.device('cuda'))"
 """
 from __future__ import annotations
 
@@ -54,8 +61,14 @@ import torch
 # 2^-7 relative) and K2's online softmax rounds p before normalising, so
 # two ulps, plus 1e-2 for values near 0.
 ATOL, RTOL = 1e-2, 2 ** -6
+# Per-kernel numbers of the JSON line (a second case adds a suffix).
+TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 VIDEOS = [(24, 1), (35, 3)]  # (frames, objects) at 480 x 854
 H, W = 480, 854
+# One H100 SXM at its 700 W limit (NVIDIA's data sheet): dense bf16 tensor
+# cores and HBM3 bandwidth.
+PEAK_BF16_FLOP_S = 989e12
+PEAK_BYTES_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -84,6 +97,75 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attention_roofline(problems: int, nq: int, nk: int, d: int,
+                       nbytes: int) -> dict:
+    """The least time one H100 could take for `problems` attentions of nq
+    queries against nk keys at head dim d (q.k^T and p.v, a multiply-add
+    = 2 operations) that move `nbytes` (each input read once, the output
+    written once): the larger of the two times, and what bounds it."""
+    flop = 4 * problems * nq * nk * d
+    ops_ms = flop / PEAK_BF16_FLOP_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return {"flop": flop, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def materialised_bias(bias_h, bias_w):
+    """[..., N, kh] and [..., N, kw] -> the additive mask [..., N, kh*kw]
+    with mask[.., i, j] = bias_h[.., i, j // kw] + bias_w[.., i, j % kw],
+    summed in f32 and stored in their dtype, one leading index at a time."""
+    kh, kw = bias_h.shape[-1], bias_w.shape[-1]
+    n = kh * kw
+    ys = torch.arange(n, device=bias_h.device) // kw
+    xs = torch.arange(n, device=bias_h.device) % kw
+    mask = torch.empty((*bias_h.shape[:-1], n), dtype=bias_h.dtype,
+                       device=bias_h.device)
+    for i in range(bias_h.shape[0]):
+        mask[i] = bias_h[i].float()[..., ys] + bias_w[i].float()[..., xs]
+    return mask
+
+
+# The library yardsticks: one `scaled_dot_product_attention` call on
+# head-split views computing each kernel's function, its mask built here,
+# before the call is timed. The port never calls it.
+
+def library_fused_qkv(qkv, bias, *, scale, heads, kh):
+    """K1 and K2: qkv [B, N, 3*H*d], bias [B, N, H, kh + kw]."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    b, n, chans = qkv.shape
+    x = qkv.view(b, n, 3, heads, chans // (3 * heads)).permute(2, 0, 3, 1, 4)
+    split = bias.permute(0, 2, 1, 3)  # [B, H, N, kh + kw]
+    mask = materialised_bias(split[..., :kh], split[..., kh:])
+    return lambda: sdpa(x[0], x[1], x[2], attn_mask=mask, scale=scale)
+
+
+def library_relpos(q, k, v, bias_h, bias_w, *, scale):
+    """K4: q, k, v [B, N, d], bias_h [B, N, kh], bias_w [B, N, kw]."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    mask = materialised_bias(bias_h, bias_w)[:, None]
+    return lambda: sdpa(q[:, None], k[:, None], v[:, None], attn_mask=mask,
+                        scale=scale)
+
+
+def library_cross(q, k, v, *, heads, divisor, kv_valid=None):
+    """K3: q [B, Nq, H*16], k and v [B, Nk, H*16], kv_valid [B, Nk]."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    def split(x):
+        b, n, chans = x.shape
+        return x.view(b, n, heads, chans // heads).transpose(1, 2)
+
+    mask = None if kv_valid is None else kv_valid.bool()[:, None, None, :]
+    qh, kh, vh = split(q), split(k), split(v)
+    return lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0 / divisor)
+
+
 def relpos_inputs(randn, b, kh, kw, d=80):
     """K4's operands as the `Attention` default route makes them: split
     q/k/v [b, N, d] and the two bias einsums over tables [k, k, d]."""
@@ -95,58 +177,104 @@ def relpos_inputs(randn, b, kh, kw, d=80):
     return q, k, v, bias_h.contiguous(), bias_w.contiguous()
 
 
-def kernel_phase(fa, device) -> dict:
+def kernel_cases(fa, device) -> dict:
+    """Name -> a function that makes one case at the main path's shapes:
+    the kernel, its plain version and its library yardstick as calls, the
+    inputs they read and (problems, nq, nk, d) for the bound. Made one at
+    a time, so that each case's inputs (K2's and K4's masks are 2.1 GB)
+    are freed before the next."""
     g = torch.Generator(device=device).manual_seed(1)
 
     def randn(*shape, std=1.0):
         return (std * torch.randn(shape, generator=g, device=device)
                 ).to(torch.bfloat16)
 
-    results = {}
-    # K1: 25 windows x 4 frames, 196 tokens, 16 heads x 80.
-    qkv = randn(100, 196, 3 * 16 * 80)
-    rh, rw = randn(14, 14, 80, std=0.2), randn(14, 14, 80, std=0.2)
-    bias = fa.window_bias(qkv, rh, rw, 16)
-    kw = dict(scale=80 ** -0.5, heads=16)
-    results["window"] = (
-        lambda: fa.window_attention_cuda(qkv, bias, **kw),
-        lambda: fa.window_attention_plain(qkv, bias, **kw))
-    # K2: 4 frames of 64 x 64 tokens, 16 heads x 80 (native).
-    qkv_g = randn(4, 4096, 3 * 16 * 80)
-    rgh, rgw = randn(64, 64, 80, std=0.2), randn(64, 64, 80, std=0.2)
-    bias_g = fa.global_bias(qkv_g, rgh, rgw, 16, 64, 64)
-    kg = dict(scale=80 ** -0.5, heads=16, kh=64, kw=64)
-    results["global"] = (
-        lambda: fa.global_attention_cuda(qkv_g, bias_g, **kg),
-        lambda: fa.global_attention_plain(qkv_g, bias_g, **kg))
+    def window():  # K1: 25 windows x 4 frames, 196 tokens, 16 heads x 80
+        qkv = randn(100, 196, 3 * 16 * 80)
+        rh, rw = randn(14, 14, 80, std=0.2), randn(14, 14, 80, std=0.2)
+        bias = fa.window_bias(qkv, rh, rw, 16)
+        kw = dict(scale=80 ** -0.5, heads=16)
+        return (lambda: fa.window_attention_cuda(qkv, bias, **kw),
+                lambda: fa.window_attention_plain(qkv, bias, **kw),
+                library_fused_qkv(qkv, bias, kh=14, **kw),
+                (qkv, bias), (100 * 16, 196, 196, 80))
+
+    def global_():  # K2: 4 frames of 64 x 64 tokens, 16 heads x 80
+        qkv = randn(4, 4096, 3 * 16 * 80)
+        rh, rw = randn(64, 64, 80, std=0.2), randn(64, 64, 80, std=0.2)
+        bias = fa.global_bias(qkv, rh, rw, 16, 64, 64)
+        kw = dict(scale=80 ** -0.5, heads=16)
+        return (lambda: fa.global_attention_cuda(qkv, bias, kh=64, kw=64,
+                                                 **kw),
+                lambda: fa.global_attention_plain(qkv, bias, kh=64, kw=64,
+                                                  **kw),
+                library_fused_qkv(qkv, bias, kh=64, **kw),
+                (qkv, bias), (4 * 16, 4096, 4096, 80))
+
     # K3: 48 pairs, 8 heads x 16; 60 prompt + output tokens, 4096 image
-    # tokens. Token -> image unmasked; image -> token with a key mask.
-    tok = randn(48, 60, 128)
-    img = randn(48, 4096, 128)
-    valid = torch.rand((48, 60), generator=g, device=device) > 0.3
-    valid[:, :5] = True
-    valid_u8 = valid.to(torch.uint8)
+    # tokens. Token -> image unmasked, with k and v distinct as in the
+    # decoder (keys + key_pe against keys); image -> token with a key mask.
     kc = dict(heads=8, divisor=4.0)
-    results["cross"] = (
-        lambda: fa.cross_attention_cuda(tok, img, img, **kc),
-        lambda: fa.cross_attention_plain(tok, img, img, **kc))
-    results["cross_masked"] = (
-        lambda: fa.cross_attention_cuda(img, tok, tok, kv_valid=valid_u8,
-                                        **kc),
-        lambda: fa.cross_attention_plain(img, tok, tok, kv_valid=valid,
-                                         **kc))
+
+    def cross():
+        tok, k, v = randn(48, 60, 128), randn(48, 4096, 128), randn(
+            48, 4096, 128)
+        return (lambda: fa.cross_attention_cuda(tok, k, v, **kc),
+                lambda: fa.cross_attention_plain(tok, k, v, **kc),
+                library_cross(tok, k, v, **kc),
+                (tok, k, v), (48 * 8, 60, 4096, 16))
+
+    def cross_masked():
+        img, k, v = randn(48, 4096, 128), randn(48, 60, 128), randn(
+            48, 60, 128)
+        valid = torch.rand((48, 60), generator=g, device=device) > 0.3
+        valid[:, :5] = True
+        valid_u8 = valid.to(torch.uint8)
+        return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
+                                                **kc),
+                lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
+                                                 **kc),
+                library_cross(img, k, v, kv_valid=valid, **kc),
+                (img, k, v, valid_u8), (48 * 8, 4096, 60, 16))
+
     # K4 from 1024 tokens (flash): 4 frames x 16 heads over 64 x 64 tokens;
     # below (whole problem per block): 100 windows x 16 heads of 14 x 14.
-    for name, shape in (("relpos", (64, 64, 64)),
-                        ("relpos_window", (1600, 14, 14))):
-        ops = relpos_inputs(randn, *shape)
-        results[name] = (
-            lambda ops=ops: fa.relpos_attention_cuda(*ops, scale=80 ** -0.5),
-            lambda ops=ops: fa.relpos_attention_plain(*ops,
-                                                      scale=80 ** -0.5))
+    def relpos(b, kh, kw):
+        ops = relpos_inputs(randn, b, kh, kw)
+        s = 80 ** -0.5
+        return (lambda: fa.relpos_attention_cuda(*ops, scale=s),
+                lambda: fa.relpos_attention_plain(*ops, scale=s),
+                library_relpos(*ops, scale=s),
+                ops, (b, kh * kw, kh * kw, 80))
 
+    return {"window": window, "global": global_, "cross": cross,
+            "cross_masked": cross_masked,
+            "relpos": lambda: relpos(64, 64, 64),
+            "relpos_window": lambda: relpos(1600, 14, 14)}
+
+
+def build_phase() -> None:
+    """Build the kernels; print the time and ptxas's registers, shared
+    memory and spills per kernel."""
+    from sam_pt_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    _cuda.library()
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"({'built' if _cuda.BUILD_INFO['built'] else 'cached'}) "
+        f"{_cuda.BUILD_INFO['path']}")
+    for line in _cuda.BUILD_INFO.get("log", "").splitlines():
+        if ("registers" in line or "smem" in line or "spill" in line
+                or "Compiling entry" in line):
+            log(f"  ptxas: {line.strip()}")
+
+
+def kernel_phase(fa, device) -> dict:
+    """Each case of `kernel_cases`: agreement with the plain version,
+    times, bound."""
     report = {}
-    for name, (kernel, plain) in results.items():
+    for name, make in kernel_cases(fa, device).items():
+        kernel, plain, library, inputs, shape = make()
         got = kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -154,15 +282,26 @@ def kernel_phase(fa, device) -> dict:
         err = float(diff.max())
         ratio = float((diff / (ATOL + RTOL * ref.float().abs())).max())
         ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0
+        roof = attention_roofline(*shape, tensor_bytes(*inputs, got))
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain)
+        library_ms = cuda_ms(library)
         log(f"kernel {name}: {got.dtype} shape {tuple(got.shape)} "
             f"max_abs_err {err:.3e} (|err| <= {ATOL:g} + {RTOL:g}|ref|: "
             f"worst {ratio:.3f} of the bound) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms {'OK' if ok else 'FAIL'}")
+            f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+            f"(kernel / library {ms / library_ms:.2f}) bound "
+            f"{roof['bound_ms']:.4f} ms by {roof['bound_by']} "
+            f"({roof['flop'] / 1e9:.2f} GFLOP, {roof['bytes'] / 1e6:.1f} MB; "
+            f"{100 * roof['bound_ms'] / ms:.1f}% of it) "
+            f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version")
-        report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=roof["bound_ms"],
+                            bound_by=roof["bound_by"])
+        del kernel, plain, library, inputs, got, ref, diff
+        torch.cuda.empty_cache()
     return report
 
 
@@ -566,18 +705,9 @@ def main() -> int:
             sam_pt_torch.__file__))) != here:
         raise SystemExit(f"sam_pt_torch imported from {sam_pt_torch.__file__}"
                          f", not from this checkout ({here})")
-    from sam_pt_torch.ops import _cuda
     from sam_pt_torch.ops import flash_attention as fa
 
-    t0 = time.perf_counter()
-    _cuda.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"({'built' if _cuda.BUILD_INFO['built'] else 'cached'}) "
-        f"{_cuda.BUILD_INFO['path']}")
-    for line in _cuda.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
+    build_phase()
     device = torch.device("cuda")
     report = kernel_phase(fa, device)
 
@@ -641,20 +771,18 @@ def main() -> int:
         r = report[key]
         entry = {"name": f"{key}_attention", "route": "cuda",
                  "source": source, "replaces": replaces,
-                 "launches": launches[key],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"]}
-        if key == "cross":  # token->image above; image->token (masked) here
-            m = report["cross_masked"]
+                 "launches": launches[key], "max_abs_err": r["max_abs_err"],
+                 **{f: r[f] for f in TIMES}}
+        # K3 token->image above and image->token (masked) here; K4 flash
+        # above and window here, launched by the route phase, not the slice.
+        second = {"cross": ("cross_masked", "_image_to_token"),
+                  "relpos": ("relpos_window", "_window")}.get(key)
+        if second:
+            m = report[second[0]]
             entry["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
-            entry["ms_image_to_token"] = m["ms"]
-            entry["plain_ms_image_to_token"] = m["plain_ms"]
-        if key == "relpos":  # launched by the route phase, not the slice
-            m = report["relpos_window"]
+            entry.update({f + second[1]: m[f] for f in TIMES})
+        if key == "relpos":
             entry["launches"] = route_launches["relpos"]
-            entry["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
-            entry["ms_window"] = m["ms"]
-            entry["plain_ms_window"] = m["plain_ms"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -53,6 +53,21 @@ def test_port_never_imports_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_calls_no_library_attention():
+    """`scaled_dot_product_attention` is only `chip_smoke.py`'s yardstick:
+    no source of the port names it."""
+    pkg = os.path.join(ROOT, "sam_pt_torch")
+    found = []
+    for folder, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(folder, name)
+                with open(path, encoding="utf-8") as f:
+                    if "scaled_dot_product_attention" in f.read():
+                        found.append(os.path.relpath(path, ROOT))
+    assert found == []
+
+
 def test_chip_smoke_needs_a_card():
     proc = _run("import runpy; runpy.run_path('chip_smoke.py', "
                 "run_name='__main__')")

@@ -1,6 +1,8 @@
 """The port's CUDA kernels K1/K2/K3/K4 against their plain PyTorch versions
 on the card, in bfloat16 at the main path's shapes (ViT-H windows and global
-blocks, 48 decoder pairs; K4 at ViT-H global width and over ViT-H windows). Needs a CUDA device; skipped without one. This
+blocks, 48 decoder pairs, K3 token -> image also at ragged shapes; K4 at
+ViT-H global width and over ViT-H windows). Needs a CUDA device; skipped
+without one. This
 file imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -17,6 +19,16 @@ import torch
 from sam_pt_torch.ops import flash_attention as fa
 
 ATOL, RTOL = 1e-2, 2 ** -6
+
+# K3 cases: name -> (nq, nk, key mask, divisor); 48 pairs, 8 heads x 16.
+K3_CASES = {
+    "token_to_image": (60, 4096, False, 4.0),
+    "image_to_token": (4096, 60, True, 4.0),
+    "token_to_image_masked": (60, 4096, True, 4.0),
+    "token_to_image_divisor_3": (60, 4096, False, 3.0),
+    **{f"token_to_image_nq{nq}_nk{nk}": (nq, nk, False, 4.0)
+       for nq in (1, 17, 64, 65, 130) for nk in (4096, 4000)},
+}
 
 
 @pytest.fixture
@@ -54,20 +66,24 @@ class TestKernelsOnCard:
         _close(fa.global_attention_cuda(qkv, bias, **kw),
                fa.global_attention_plain(qkv, bias, **kw))
 
-    @pytest.mark.parametrize("direction", ["token_to_image", "image_to_token"])
-    def test_cross_k3(self, gen, direction):
-        tok = _randn(gen, 48, 60, 128)
-        img = _randn(gen, 48, 4096, 128)
-        kw = dict(heads=8, divisor=4.0)
-        if direction == "token_to_image":
-            _close(fa.cross_attention_cuda(tok, img, img, **kw),
-                   fa.cross_attention_plain(tok, img, img, **kw))
-            return
-        valid = torch.rand((48, 60), generator=gen, device="cuda") > 0.3
-        valid[:, 0] = True
-        _close(fa.cross_attention_cuda(img, tok, tok,
-                                       kv_valid=valid.to(torch.uint8), **kw),
-               fa.cross_attention_plain(img, tok, tok, kv_valid=valid, **kw))
+    @pytest.mark.parametrize("case", list(K3_CASES))
+    def test_cross_k3(self, gen, case):
+        """k and v distinct (a kernel that swapped them would fail), both
+        directions at the decoder's shapes, token -> image over ragged
+        query and key counts, with a key mask and with a divisor that is
+        no power of two."""
+        nq, nk, masked, divisor = K3_CASES[case]
+        q = _randn(gen, 48, nq, 128)
+        k, v = _randn(gen, 48, nk, 128), _randn(gen, 48, nk, 128)
+        kw = dict(heads=8, divisor=divisor)
+        valid = None
+        if masked:
+            valid = torch.rand((48, nk), generator=gen, device="cuda") > 0.3
+            valid[:, 0] = True
+        got = fa.cross_attention_cuda(
+            q, k, v, kv_valid=None if valid is None else valid.to(
+                torch.uint8), **kw)
+        _close(got, fa.cross_attention_plain(q, k, v, kv_valid=valid, **kw))
 
     @pytest.mark.parametrize("b,kh,kw", [(64, 64, 64), (1600, 14, 14),
                                          (2, 16, 70)])

@@ -7,7 +7,8 @@ path, and each later path, each with its own launch counts.
 Phases, in order; any failure exits non-zero before the verdict line:
   1. The card's name and power limit (nvidia-smi), torch/CUDA versions.
   2. Build the CUDA kernels from `sam_pt_torch/csrc` (nvcc, sm_90a).
-  3. Kernel phase: K1/K2/K3 against their plain PyTorch versions at the
+  3. Kernel phase: the window body's resident blocks per SM at ViT-H's
+     windows, then K1/K2/K3 against their plain PyTorch versions at the
      main path's shapes in bf16 (seeded inputs), K4 in both its regimes
      (ViT-H global width, 64 x 4096 x 80; ViT-H windows, 1600 x 196 x 80),
      max abs error against a stated tolerance, and CUDA-event times
@@ -41,7 +42,7 @@ Then one JSON line with the per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. The kernel phase alone:
 
     python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
-flash_attention as fa, _cuda; _cuda.library(); \
+flash_attention as fa; chip_smoke.build_phase(); \
 chip_smoke.kernel_phase(fa, torch.device('cuda'))"
 """
 from __future__ import annotations
@@ -270,8 +271,16 @@ def build_phase() -> None:
 
 
 def kernel_phase(fa, device) -> dict:
-    """Each case of `kernel_cases`: agreement with the plain version,
-    times, bound."""
+    """The window body's resident blocks per SM at ViT-H's windows, then
+    each case of `kernel_cases`: agreement with the plain version, times,
+    bound."""
+    from sam_pt_torch.ops import _cuda
+
+    blocks = _cuda.library().sam_window_blocks_per_sm(14, 14, 80)
+    log(f"kernel window body: {blocks} blocks resident per SM at 14 x 14 "
+        f"tokens, head dim 80 (occupancy calculator)")
+    if blocks < 1:
+        raise SystemExit("the window body cannot run at ViT-H's windows")
     report = {}
     for name, make in kernel_cases(fa, device).items():
         kernel, plain, library, inputs, shape = make()

@@ -32,9 +32,7 @@
 //    k-step), a block per 64 query rows sharing every key chunk it stages
 //    (below).
 
-#include <stdint.h>
-
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace sampt {
 
@@ -139,62 +137,6 @@ constexpr int K3T_ROWS = 64;            // query rows per block
 constexpr int K3T_KC = 128;             // keys per chunk, 64 per key half
 constexpr int K3T_LD = 24;              // bf16 per staged row: 48 bytes, so
                                         // 8 rows hit 8 distinct bank quads
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d = a (16 x 16, row-major) . b (16 x 8, column-major) + d, f32 sums.
-__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Merge the running (max, sum) (m2, l2) into (m, l), maxima in log2
-// units; a side that saw no key carries (-inf, 0).
-__device__ __forceinline__ void merge_stats(float& m, float& l, float m2,
-                                            float l2) {
-  const float m_new = fmaxf(m, m2);
-  if (m_new == -INFINITY) return;
-  l = (m == -INFINITY ? 0.f : l * fast_exp2(m - m_new)) +
-      (m2 == -INFINITY ? 0.f : l2 * fast_exp2(m2 - m_new));
-  m = m_new;
-}
 
 // S = Q K^T for the 16 keys from `krow0` (staged rows, K3T_LD apart): s0
 // holds keys 2t, 2t + 1 and s1 keys 8 + 2t, 9 + 2t, each of rows g (0, 1)

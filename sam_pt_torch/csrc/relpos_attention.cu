@@ -20,21 +20,24 @@
 // What bounds it on the H100: at ViT-H global width (B = 4 frames x 16
 // heads = 64, N = 4096, D = 80) about 340 GFLOP per call, compute-bound if
 // both products run on the tensor cores, with [B, N, N] f32 logits (4.3 GB)
-// if they were materialised. Below 1024 tokens (ViT-H windows: B = 1600,
-// N = 196) it is ~20 GFLOP on 150 MB of q/k/v, close to the memory
-// traffic of reading them once. Design: the two regimes of the TPU
-// function, on the kernels K1 and K2 use (relpos_kernels.cu), over strided
-// operands:
-//   - N < 1024 and the whole problem fits in shared memory: one block per
-//     problem keeps q, k and v (rows zero-padded to a multiple of 16, 196
-//     -> 208; ~110 KB at D = 80, opt-in dynamic shared memory above 48 KB)
-//     and runs the exact softmax, so p is normalised before it is rounded
-//     to bf16, as in the TPU kernel.
-//   - otherwise: flash-style, one block per 64-row q-tile with its bias
+// if they were materialised. Over ViT-H windows (B = 1600, N = 196) it is
+// 19.7 GFLOP on 218 MB, bound by the bytes. Design: the two regimes of the
+// TPU function, on the two bodies K1 and K2 use (relpos_kernels.cu), over
+// strided operands:
+//   - N <= 208 and kh + kw < 32: the window body (see window_attention.cu),
+//     one block per problem with its logits, probabilities and output in
+//     registers and the exact softmax, so p is normalised before it is
+//     rounded to bf16, as in the TPU kernel. 208 keys (13 x 8 f32 a
+//     thread) is what a warp's 16-row tile of logits can hold in
+//     registers, and 31 columns what the bias block of its logits product
+//     carries beside the mask column; the TPU function's boundary was
+//     N = 1024.
+//   - otherwise: the flash body, one block per 64-row q-tile with its bias
 //     rows staged in shared memory, keys in double-buffered cp.async tiles
 //     of 64, online softmax. p is rounded to bf16 before the division by
 //     the row sum (known only at the end), where the TPU kernel divides
-//     first: the two differ by at most one bf16 rounding of p.
+//     first: for 208 < N < 1024 the two differ by at most one bf16
+//     rounding of p.
 // Ragged q- and k-tiles are masked in the kernel (the TPU function asserts
 // N % q_tile == 0); the TPU's choice of windows per grid step is a VMEM
 // size choice with no counterpart here.
@@ -69,8 +72,7 @@ extern "C" int sam_relpos_attention(const void* q, const void* k,
   a.kh = kh, a.kw = kw, a.d = d;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1024 &&
-      sampt::WindowLayout(n, d).total <= sampt::kMaxSharedBytes)
+  if (n <= sampt::kWindowMaxN && kh + kw < sampt::kWindowBiasCols)
     return sampt::launch_relpos_window(a, 1, b, s);
   if (sampt::FlashLayout(d, kh + kw).total > sampt::kMaxSharedBytes)
     return (int)cudaErrorInvalidValue;

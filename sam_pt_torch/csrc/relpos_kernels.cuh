@@ -4,14 +4,18 @@
 // global_attention.cu and relpos_attention.cu for what each use replaces,
 // what bounds it and why it is shaped so.
 //
-//   relpos_window_kernel: one block per (head, batch) problem holds the
-//     whole q, k and v of a short sequence in shared memory and runs the
-//     exact softmax (p normalised, then rounded to bf16). K1, and K4 below
-//     1024 tokens.
-//   relpos_flash_kernel: one block per (64-row q-tile, head, batch) walks
-//     the keys in double-buffered tiles of 64 with an online softmax (p
-//     rounded to bf16 before the division by the row sum). K2, and K4 from
-//     1024 tokens.
+//   relpos_window_kernel (the window body): one block of 4 warps per
+//     (head, batch) problem of at most 208 tokens holds its k and v in
+//     shared memory; each warp keeps a 16-row query tile's logits,
+//     probabilities and output in registers (mma.sync m16n8k16, the bias
+//     added by the same product through a one-hot block) and runs the
+//     exact softmax (p normalised, then rounded to bf16). Two blocks share
+//     an SM. K1, and K4 up to 208 tokens with kh + kw < 32.
+//   relpos_flash_kernel (the flash body): one block per (64-row q-tile,
+//     head, batch) walks the keys in double-buffered tiles of 64 with an
+//     online softmax (p rounded to bf16 before the division by the row
+//     sum), on warp-level 16x16x16 WMMA tiles through per-warp f32 slabs.
+//     K2, and K4 otherwise.
 //
 // Both compute, per problem (N = kh * kw tokens, D = head dim, key j at
 // (y_j, x_j) = (j / kw, j % kw)):
@@ -19,9 +23,8 @@
 //                 + (bias_h[i, y_j] + bias_w[i, x_j])
 //   out[i]      = softmax_j(logit[i, :]) . v   (f32 accumulation, one
 //                                               rounding at the output)
-// Products run on the tensor cores as warp-level 16x16x16 bf16 WMMA tiles
-// (mma.sync); tiles are loaded by 16-byte cp.async copies; ragged q- and
-// k-tiles are zero-filled and masked.
+// Both products run on the tensor cores (bf16 in, f32 sums); k and v
+// arrive by 16-byte cp.async copies; rows past N are masked.
 #pragma once
 
 #include "common.cuh"
@@ -42,31 +45,36 @@ struct RelposArgs {
   float scale;  // already rounded to bf16 by the caller
 };
 
-constexpr int kRelposWarps = 4;  // warps per block of both kernels
-
 // ---------------------------------------------------------------------------
-// Whole sequence per block
+// Window body: the whole problem per block
 // ---------------------------------------------------------------------------
 
+constexpr int kWindowWarps = 4;  // each takes 16-row query tiles in turn
+constexpr int kWindowTiles = 13;                // 16-key tiles a warp holds
+constexpr int kWindowMaxN = 16 * kWindowTiles;  // tokens per problem
+// Columns of the bias block the logits product carries: bias_h and bias_w
+// (kh + kw < 32 of them), zeros, and the mask column last.
+constexpr int kWindowBiasCols = 32;
+
+// v (n rows), k (208 rows, zeros past n) and the one-hot block (208 rows
+// of kWindowBiasCols): rows d + 8 and kWindowBiasCols + 8 bf16 apart, 16
+// bytes on distinct bank quads for ldmatrix.
 struct WindowLayout {
-  int np, ldh, lds, ldp;
-  size_t tile, warp, s, p, total;
+  size_t k, onehot, total;
   __host__ __device__ WindowLayout(int n, int d) {
-    np = (n + 15) / 16 * 16;
-    ldh = d + 8;   // bf16 q/k/v row stride (multiple of 8)
-    lds = np + 4;  // f32 logits / output row stride (multiple of 4)
-    ldp = np + 8;  // bf16 P row stride (multiple of 8)
-    tile = align16(sizeof(__nv_bfloat16) * np * ldh);
-    warp = 3 * tile;
-    s = align16(sizeof(float) * 16 * (lds > d + 4 ? lds : d + 4));
-    p = align16(sizeof(__nv_bfloat16) * 16 * ldp);
-    total = warp + kRelposWarps * (s + p);
+    const size_t row = sizeof(__nv_bfloat16) * (d + 8);
+    k = align16(row * n);
+    onehot = k + row * kWindowMaxN;
+    total = onehot +
+            sizeof(__nv_bfloat16) * kWindowMaxN * (kWindowBiasCols + 8);
   }
 };
 
 // ---------------------------------------------------------------------------
-// Flash: key tiles with an online softmax
+// Flash body: key tiles with an online softmax
 // ---------------------------------------------------------------------------
+
+constexpr int kRelposWarps = 4;  // warps per block of the flash body
 
 constexpr int kFlashTQ = 16 * kRelposWarps;  // query rows per block
 constexpr int kFlashTK = 64;                 // keys per tile
@@ -92,10 +100,15 @@ struct FlashLayout {
 
 // Launchers: set the dynamic shared-memory limit, launch on `stream`,
 // return the launch's cudaError_t. Callers check shapes and alignment.
-// Whole problem per block: grid (heads, batch), WindowLayout(n, d).total
-// bytes of dynamic shared memory.
+// Window body: grid (heads, batch), n = kh * kw <= kWindowMaxN,
+// kh + kw < kWindowBiasCols, WindowLayout(n, d).total bytes of dynamic
+// shared memory.
 int launch_relpos_window(const RelposArgs& a, int heads, int batch,
                          cudaStream_t stream);
+// Blocks of the window body resident on one SM at (kh, kw, d), as the
+// occupancy calculator gives them with the launcher's attributes set, or
+// minus a cudaError_t.
+int relpos_window_blocks_per_sm(int kh, int kw, int d);
 // Flash: grid (ceil(n / kFlashTQ), heads, batch), FlashLayout(d, kh +
 // kw).total bytes of dynamic shared memory.
 int launch_relpos_flash(const RelposArgs& a, int heads, int batch,

@@ -13,37 +13,47 @@
 // with qkv [BW, N, 3*H*D] laid out (3, H, D) along its last axis and the
 // decomposed rel-pos bias [BW, N, H, 2*win] precomputed by two einsums
 // outside the kernel (rounded to bf16 there, as the JAX package does). The
-// TPU kernel added that bias through a one-hot matmul, a lane trick; here
-// each logit adds its two bias values directly.
+// TPU kernel added that bias through a one-hot matmul; so does this one.
 //
 // What bounds it on the H100: at ViT-H (N = 196, D = 80, H = 16, 100
-// windows per 4-frame chunk) it is about 20 GFLOP per layer on 60 MB of
-// qkv: compute-bound on the FP32 pipes, close to the memory traffic of
-// reading qkv once when the products run on the tensor cores; and, as
-// measured, bound by load latency when tiles are loaded element by
-// element. Design: one block per (head, window) keeps that head's q, k and
-// v (zero-padded 196 -> 208 rows, 110 KB) in dynamic shared memory, loaded
-// by 16-byte cp.async copies that are all in flight at once, so logits
-// never reach device memory. Each of the 4 warps takes 16-row tiles of
-// queries in turn: the 16 x 208 logits block comes from warp-level
-// 16x16x16 bf16 WMMA tiles (mma.sync) into a per-warp f32 slab, two lanes
-// per row add the bias and run the exact softmax over the whole row (so p
-// is normalised before it is rounded, like the TPU kernel's), and P . V
-// comes from WMMA tiles again. About 190 KB of shared memory: one block
-// per SM. Later: wgmma, several windows per block. The kernel body is
-// `relpos_window_kernel` in relpos_kernels.cu, shared with K4.
+// windows per 4-frame chunk) it is 19.7 GFLOP on 218 MB (qkv, bias and
+// output each moved once): 0.065 ms of memory traffic against 0.020 ms
+// of tensor-core work, so bytes bound it, if the latency of the loads
+// is hidden and the softmax costs few instructions a logit. Design (the
+// window body, `relpos_window_kernel` in relpos_kernels.cu, shared with
+// K4): one block of 4 warps per (head, window), 88 KB of shared memory
+// at ViT-H (k, v and a one-hot block), two blocks per SM, so that one
+// block's loads overlap the other's arithmetic. k arrives by
+// 16-byte cp.async in one group and v in a second, so the first logits
+// are formed while v is in flight. A warp takes a 16-row query tile
+// against all keys on mma.sync m16n8k16 (ldmatrix from shared memory):
+// its A fragments are q (scaled and rounded in registers) and the tile's
+// bias rows, read straight from device memory a tile ahead; its B
+// fragments are k and the one-hot block, which selects bias_h[y] and
+// bias_w[x] for each key and sends keys past N to -3.4e38. So the bias
+// costs 2 more k-steps on the tensor cores and no instruction per logit.
+// The 16 x 208 logits stay in registers, the row max and sum close over
+// the lane quad, and p = rnd(e * (1 / sum)) (normalised, then rounded, as
+// in the TPU kernel) packs straight into the A fragments of P . V, whose
+// output is rounded once at the store. Exponentials are ex2.approx in log2
+// units; p is rounded to bf16 right after, which hides the difference. The
+// logits take 104 registers a thread: blocks of 5 to 8 warps get at most
+// 128 registers at two blocks per SM and spill, so a block has 4 warps,
+// which may use up to 255. Not wgmma: its 64-row tiles would pad 196 rows
+// to 256 and its shared-memory layouts do not suit 80-wide rows, while
+// mma.sync already keeps the tensor work under the byte bound.
 
 #include "relpos_kernels.cuh"
 
 // qkv [bw, n, 3*heads*d] (16-byte aligned), bias [bw, n, heads, 2*win],
-// out [bw, n, heads*d], all contiguous bfloat16; d a multiple of 16, at
-// most 128. Returns a cudaError_t.
+// out [bw, n, heads*d], all contiguous bfloat16; n at most 208; d a
+// multiple of 16, at most 128. Returns a cudaError_t.
 extern "C" int sam_window_attention(const void* qkv, const void* bias,
                                     void* out, int bw, int n, int win,
                                     int heads, int d, float scale,
                                     void* stream) {
-  if (win * win != n || d % 16 != 0 || d > 128 || !sampt::aligned16(qkv) ||
-      sampt::WindowLayout(n, d).total > sampt::kMaxSharedBytes)
+  if (win * win != n || n > sampt::kWindowMaxN || d % 16 != 0 || d > 128 ||
+      !sampt::aligned16(qkv))
     return (int)cudaErrorInvalidValue;
   typedef __nv_bfloat16 bf16;
   const bf16* q = static_cast<const bf16*>(qkv);
@@ -66,4 +76,10 @@ extern "C" int sam_window_attention(const void* qkv, const void* bias,
   a.scale = scale;
   return sampt::launch_relpos_window(a, heads, bw,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the window body resident on one SM for problems of kh x kw
+// tokens at head dim d, or minus a cudaError_t.
+extern "C" int sam_window_blocks_per_sm(int kh, int kw, int d) {
+  return sampt::relpos_window_blocks_per_sm(kh, kw, d);
 }

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "sam_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sam_relpos_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _P],
+    "sam_window_blocks_per_sm": [_I, _I, _I],
 }
 
 

@@ -322,8 +322,9 @@ def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def relpos_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias_h: torch.Tensor, bias_w: torch.Tensor, *,
                           scale: float) -> torch.Tensor:
-    """K4 kernel launch (sam_pt_torch/csrc/relpos_attention.cu): the whole
-    problem in shared memory below 1024 tokens, flash from 1024."""
+    """K4 kernel launch (sam_pt_torch/csrc/relpos_attention.cu): the window
+    body (the whole problem per block) up to 208 tokens with kh + kw < 32,
+    the flash body otherwise."""
     from ._cuda import check, library
 
     _check_cuda("relpos_attention", (q, k, v, bias_h, bias_w))

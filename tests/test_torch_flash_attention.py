@@ -33,15 +33,18 @@ def _window_inputs(rng, bw=2, win=14, heads=16, d=80):
 
 
 class TestPlainVersusJax:
-    def test_window_k1_vith_shapes(self):
-        """K1 at ViT-H window shapes: BW=2, 196 tokens, 16 heads x 80."""
-        qkv, rh, rw = _window_inputs(_rng())
-        scale = 80 ** -0.5
+    @pytest.mark.parametrize("heads,d", [(16, 80), (12, 64)])
+    def test_window_k1_vith_shapes(self, heads, d):
+        """K1 over 14 x 14 windows (BW=2, 196 tokens) at ViT-H's heads
+        (16 x 80) and at ViT-B/L's head dim (12 x 64)."""
+        qkv, rh, rw = _window_inputs(_rng(), heads=heads, d=d)
+        scale = d ** -0.5
         ref = jfa.fused_qkv_window_attention(
             jnp.asarray(qkv), jnp.asarray(rh), jnp.asarray(rw), scale=scale,
-            heads=16)
+            heads=heads)
         got = fa.window_attention(torch.from_numpy(qkv), torch.from_numpy(rh),
-                                  torch.from_numpy(rw), scale=scale, heads=16)
+                                  torch.from_numpy(rw), scale=scale,
+                                  heads=heads)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    atol=F32_ATOL, rtol=0)
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels K1/K2/K3/K4 against their plain PyTorch versions
 on the card, in bfloat16 at the main path's shapes (ViT-H windows and global
 blocks, 48 decoder pairs, K3 token -> image also at ragged shapes; K4 at
-ViT-H global width and over ViT-H windows). Needs a CUDA device; skipped
-without one. This
+ViT-H global width and over ViT-H windows; the window body also at head
+dims 64 and 128 and over small, rectangular and ragged windows). Needs a
+CUDA device; skipped without one. This
 file imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -48,14 +49,28 @@ def _close(got, ref):
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
-    def test_window_k1(self, gen):
-        qkv = _randn(gen, 100, 196, 3 * 16 * 80)
-        rh, rw = _randn(gen, 14, 14, 80, std=0.2), _randn(gen, 14, 14, 80,
-                                                          std=0.2)
-        bias = fa.window_bias(qkv, rh, rw, 16)
-        kw = dict(scale=80 ** -0.5, heads=16)
+    @pytest.mark.parametrize("heads,d,win", [(16, 80, 14), (12, 64, 14),
+                                             (16, 80, 7), (16, 80, 6)])
+    def test_window_k1(self, gen, heads, d, win):
+        """ViT-H's heads (16 x 80) and ViT-B/L's head dim (12 x 64) over
+        14 x 14 windows (196 tokens, a ragged last 16-row tile), and small
+        windows: 7 x 7 (49 tokens, 4 row tiles, one for each of the 4
+        warps) and 6 x 6 (36 tokens, 3 tiles: one warp has no tile, skips
+        its scores and output and still reaches the barrier for v)."""
+        qkv = _randn(gen, 100, win * win, 3 * heads * d)
+        rh, rw = _randn(gen, win, win, d, std=0.2), _randn(gen, win, win, d,
+                                                           std=0.2)
+        bias = fa.window_bias(qkv, rh, rw, heads)
+        kw = dict(scale=d ** -0.5, heads=heads)
         _close(fa.window_attention_cuda(qkv, bias, **kw),
                fa.window_attention_plain(qkv, bias, **kw))
+
+    def test_window_body_two_blocks_per_sm(self, gen):
+        """At ViT-H's 14 x 14 x 80 the window body's shared memory (88 KB)
+        and registers leave room for two blocks on an SM."""
+        from sam_pt_torch.ops._cuda import library
+
+        assert library().sam_window_blocks_per_sm(14, 14, 80) == 2
 
     def test_global_k2(self, gen):
         qkv = _randn(gen, 1, 4096, 3 * 16 * 80)
@@ -85,12 +100,16 @@ class TestKernelsOnCard:
                 torch.uint8), **kw)
         _close(got, fa.cross_attention_plain(q, k, v, kv_valid=valid, **kw))
 
-    @pytest.mark.parametrize("b,kh,kw", [(64, 64, 64), (1600, 14, 14),
-                                         (2, 16, 70)])
-    def test_relpos_k4(self, gen, b, kh, kw):
-        """The flash regime (ViT-H global width; a rectangle with a ragged
-        last q- and k-tile) and the whole-window regime (ViT-H windows)."""
-        d = 80
+    @pytest.mark.parametrize("b,kh,kw,d", [
+        (64, 64, 64, 80), (2, 16, 70, 80), (64, 15, 15, 80),  # flash
+        (1600, 14, 14, 80), (64, 7, 20, 80), (64, 10, 10, 80),  # window
+        (64, 4, 5, 80), (64, 14, 14, 128)])
+    def test_relpos_k4(self, gen, b, kh, kw, d):
+        """The flash body (ViT-H global width; a rectangle with a ragged
+        last q- and k-tile; 225 tokens, just above the window body) and the
+        window body (ViT-H windows; a 7 x 20 rectangle; 100 tokens, no
+        multiple of 16; 20 tokens, 2 row tiles for 4 warps; head dim 128,
+        one block per SM)."""
         q, k, v = (_randn(gen, b, kh * kw, d) for _ in range(3))
         rq = q.reshape(b, kh, kw, d)
         bias_h = torch.einsum("bhwc,hkc->bhwk", rq,

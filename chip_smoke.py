@@ -7,9 +7,9 @@ path, and each later path, each with its own launch counts.
 Phases, in order; any failure exits non-zero before the verdict line:
   1. The card's name and power limit (nvidia-smi), torch/CUDA versions.
   2. Build the CUDA kernels from `sam_pt_torch/csrc` (nvcc, sm_90a).
-  3. Kernel phase: the window body's resident blocks per SM at ViT-H's
-     windows, then K1/K2/K3 against their plain PyTorch versions at the
-     main path's shapes in bf16 (seeded inputs), K4 in both its regimes
+  3. Kernel phase: the window and flash bodies' resident blocks per SM at
+     ViT-H's shapes, then K1/K2/K3 against their plain PyTorch versions at
+     the main path's shapes in bf16 (seeded inputs), K4 in both its regimes
      (ViT-H global width, 64 x 4096 x 80; ViT-H windows, 1600 x 196 x 80),
      max abs error against a stated tolerance, and CUDA-event times
      (median of 5 runs) of the kernel, its plain version and one PyTorch
@@ -58,9 +58,11 @@ import numpy as np
 import torch
 
 # Kernel vs plain version on the same bf16 inputs: |got - ref| <= ATOL +
-# RTOL * |ref| everywhere. Both round the output to bf16 (one ulp is up to
-# 2^-7 relative) and K2's online softmax rounds p before normalising, so
-# two ulps, plus 1e-2 for values near 0.
+# RTOL * |ref| everywhere. Both normalise p before rounding it to bf16
+# and round the output once, so they differ where f32 sums in another
+# order, or ex2.approx against exp, tip a rounding of p or of the output
+# (one output ulp is up to 2^-7 relative): two ulps, plus 1e-2 for values
+# near 0.
 ATOL, RTOL = 1e-2, 2 ** -6
 # Per-kernel numbers of the JSON line (a second case adds a suffix).
 TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -271,9 +273,9 @@ def build_phase() -> None:
 
 
 def kernel_phase(fa, device) -> dict:
-    """The window body's resident blocks per SM at ViT-H's windows, then
-    each case of `kernel_cases`: agreement with the plain version, times,
-    bound."""
+    """The window and flash bodies' resident blocks per SM at ViT-H's
+    shapes, then each case of `kernel_cases`: agreement with the plain
+    version, times, bound."""
     from sam_pt_torch.ops import _cuda
 
     blocks = _cuda.library().sam_window_blocks_per_sm(14, 14, 80)
@@ -281,6 +283,11 @@ def kernel_phase(fa, device) -> dict:
         f"tokens, head dim 80 (occupancy calculator)")
     if blocks < 1:
         raise SystemExit("the window body cannot run at ViT-H's windows")
+    blocks = _cuda.library().sam_flash_blocks_per_sm(64, 64, 80)
+    log(f"kernel flash body: {blocks} blocks resident per SM at 64 x 64 "
+        f"tokens, head dim 80 (occupancy calculator)")
+    if blocks < 1:
+        raise SystemExit("the flash body cannot run at ViT-H's global grid")
     report = {}
     for name, make in kernel_cases(fa, device).items():
         kernel, plain, library, inputs, shape = make()

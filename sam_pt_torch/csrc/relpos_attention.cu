@@ -9,7 +9,8 @@
 // dim; key j at (y_j, x_j) = (j / kw, j % kw)):
 //   logit[i, j] = round_bf16(q_i * scale) . k_j  (f32)
 //                 + (bias_h[b, i, y_j] + bias_w[b, i, x_j])
-//   out[i]      = softmax_j(logit[i, :]) . v   (f32 accumulation)
+//   p[i, j]     = round_bf16(softmax_j(logit[i, :]))  (normalised first)
+//   out[i]      = round_bf16(p[i, :] . v)   (f32 accumulation)
 // with q, k, v [B, N, D] and bias_h [B, N, kh], bias_w [B, N, kw] already
 // rounded to bf16 (two einsums outside the kernel, as the JAX package
 // computes them). The TPU kernel padded D to 128 lanes and added the bias
@@ -18,26 +19,27 @@
 // and each logit adds its two bias values directly.
 //
 // What bounds it on the H100: at ViT-H global width (B = 4 frames x 16
-// heads = 64, N = 4096, D = 80) about 340 GFLOP per call, compute-bound if
-// both products run on the tensor cores, with [B, N, N] f32 logits (4.3 GB)
-// if they were materialised. Over ViT-H windows (B = 1600, N = 196) it is
-// 19.7 GFLOP on 218 MB, bound by the bytes. Design: the two regimes of the
-// TPU function, on the two bodies K1 and K2 use (relpos_kernels.cu), over
+// heads = 64, N = 4096, D = 80) the two products are 344 GFLOP per call,
+// 0.347 ms at the dense bf16 rate, with [B, N, N] f32 logits (4.3 GB) if
+// they were materialised; the exact softmax (p normalised before it is
+// rounded) adds a second pass of q.k^T (515 GFLOP in all) and an ex2 per
+// logit a pass (2.15e9). Over ViT-H windows (B = 1600, N = 196) it is 19.7
+// GFLOP on 218 MB, bound by the bytes. Design: the two regimes of the TPU
+// function, on the two bodies K1 and K2 use (relpos_kernels.cu), over
 // strided operands:
 //   - N <= 208 and kh + kw < 32: the window body (see window_attention.cu),
 //     one block per problem with its logits, probabilities and output in
-//     registers and the exact softmax, so p is normalised before it is
-//     rounded to bf16, as in the TPU kernel. 208 keys (13 x 8 f32 a
-//     thread) is what a warp's 16-row tile of logits can hold in
-//     registers, and 31 columns what the bias block of its logits product
-//     carries beside the mask column; the TPU function's boundary was
-//     N = 1024.
-//   - otherwise: the flash body, one block per 64-row q-tile with its bias
-//     rows staged in shared memory, keys in double-buffered cp.async tiles
-//     of 64, online softmax. p is rounded to bf16 before the division by
-//     the row sum (known only at the end), where the TPU kernel divides
-//     first: for 208 < N < 1024 the two differ by at most one bf16
-//     rounding of p.
+//     registers. 208 keys (13 x 8 f32 a thread) is what a warp's 16-row
+//     tile of logits can hold in registers, and 31 columns what the bias
+//     block of its logits product carries beside the mask column; the TPU
+//     function's boundary was N = 1024.
+//   - otherwise: the flash body (see global_attention.cu): wgmma on
+//     64-key tiles that TMA brings from k and v (each mapped as a 4D
+//     tensor with one head), two passes over the keys for the exact
+//     softmax, the bias rows staged in shared memory (at kw = 64 bias_w in
+//     registers).
+// Both regimes normalise p before rounding it to bf16, as the TPU kernels
+// do.
 // Ragged q- and k-tiles are masked in the kernel (the TPU function asserts
 // N % q_tile == 0); the TPU's choice of windows per grid step is a VMEM
 // size choice with no counterpart here.
@@ -74,7 +76,10 @@ extern "C" int sam_relpos_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= sampt::kWindowMaxN && kh + kw < sampt::kWindowBiasCols)
     return sampt::launch_relpos_window(a, 1, b, s);
-  if (sampt::FlashLayout(d, kh + kw).total > sampt::kMaxSharedBytes)
+  if (sampt::FlashLayout(d, kh + kw).stages < 2)
     return (int)cudaErrorInvalidValue;
-  return sampt::launch_relpos_flash(a, 1, b, s);
+  const long nd = (long)n * d;
+  const sampt::FlashOperand kv[2] = {{k, 1, 0, d, d, nd},
+                                     {v, 1, 0, d, d, nd}};
+  return sampt::launch_relpos_flash(a, kv, 1, b, s);
 }

@@ -2,8 +2,7 @@
 // launchers; what they compute, their arguments and shared-memory layouts
 // are in relpos_kernels.cuh.
 
-#include <mma.h>
-
+#include "hopper.cuh"
 #include "mma.cuh"
 #include "relpos_kernels.cuh"
 
@@ -304,167 +303,402 @@ relpos_window_kernel(const RelposArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Flash: key tiles with an online softmax
+// Flash body: two passes over TMA-fed key tiles, wgmma
 // ---------------------------------------------------------------------------
+//
+// Grid (ceil(n / 192), heads, batch), 512 threads (up to D = 80; above,
+// two consumer warpgroups: 128 rows, 384 threads): warpgroups 0-2 take
+// query rows 0-63, 64-127 and 128-191 of the block, warpgroup 3 is the
+// producer, whose first thread issues every TMA copy and which gives its
+// registers to the consumers (setmaxnreg: 24 against 160; 240 with two
+// consumers). One template
+// instance per head dim D and route: kRowTile (kw == 64, the ViT-H grid)
+// makes each 64-key tile one grid row y, so the thread keeps its 16
+// columns' bias_w values in registers and adds one bias_h value per row
+// and tile; otherwise each logit gathers its two bias values from the
+// staged rows, and keys past n are masked to -inf.
+//
+// The producer copies k of every tile (pass 1), then k and v of every
+// tile (pass 2), each tile into the next stage of the ring (8 stages at
+// ViT-H's shapes) once every consumer warp has released it (empty
+// barrier, 4 warp arrivals a consumer warpgroup). A tile is 64-column
+// boxes (128-byte rows) up to the last multiple of 64 columns, then
+// 16-column boxes (32-byte rows): TMA's time goes by rows, so narrow
+// boxes cost it several times their bytes. TMA fills rows past n with
+// zeros.
+//
+// A consumer warpgroup stages its 64 bias rows and loads its q rows as
+// wgmma A fragments (round_bf16(q * scale), D / 4 registers a thread,
+// held up to D = 96 and loaded again per tile above), then per tile:
+// pass 1 issues S = q k^T (wgmma m64n64k16, q from registers, k from
+// shared memory, D / 16 k-steps) into 32 f32 registers a thread (rows g,
+// g + 8 of its warp's 16, columns 8j + 2t, + 1), waits for it and turns
+// it into log2-unit logits in place, keeping each thread's running max
+// and sum over its own columns (merged over the lane quad at the end into
+// the row's m and l); pass 2 issues tile t - 1's P . V (m64nDk16, v
+// MN-major with the transpose bit, O in D / 2 registers) together with
+// tile t's S, then forms p = rnd(2^(z - m - log2 l)), the softmax
+// normalised before it is rounded, packed straight into the A fragments
+// of the next P . V. O is rounded once at the store. Each warpgroup waits
+// for its own products; the three warpgroups' products and softmax
+// overlap. Measured and dropped: two consumer warpgroups (15% slower);
+// four (160 registers become 120: spills); the next tile's S issued
+// before the softmax; the warpgroups taking turns to issue (named
+// barriers); clusters of two CTAs sharing k/v copies by TMA multicast.
+// None was faster.
 
-__global__ void __launch_bounds__(kRelposWarps * 32)
-relpos_flash_kernel(const RelposArgs a) {
-  using namespace nvcuda;
+// Bytes of one 64-row box: 64 columns (128-byte swizzle) or 16 (32-byte).
+constexpr uint32_t kWideBox = kFlashKeys * 128;
+constexpr uint32_t kNarrowBox = kFlashKeys * 32;
+
+struct FlashHeads {
+  int k, v;  // head coordinate of head 0 in each TMA map
+};
+
+// TMA maps of k and v: boxes of 64 columns, and of 16 (the columns past
+// the last multiple of 64).
+struct FlashMaps {
+  CUtensorMap k_wide, k_narrow, v_wide, v_narrow;
+};
+
+template <int D, bool kRowTile>
+__global__ void __launch_bounds__(flash_threads(D), 1)
+relpos_flash_kernel(const __grid_constant__ FlashMaps m, const RelposArgs a,
+                    const FlashHeads c) {
   typedef __nv_bfloat16 bf16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kh = a.kh, kw = a.kw, d = a.d;
-  const int n = kh * kw;
-  const int nb = kh + kw;
-  const int q0 = blockIdx.x * kFlashTQ;
+  constexpr int C = flash_consumers(D);
+  // The consumers' share of the registers the producer leaves them.
+  constexpr int kConsumerRegs = (65536 / 128 - kFlashProducerRegs) / C / 8 * 8;
+  constexpr int KS = D / 16;      // k-steps of q.k
+  constexpr int W = D / 64 * 64;  // columns in 64-column boxes
+  constexpr int R = D - W;        // columns in 16-column boxes after them
+  constexpr uint32_t kTile = 128 * D;  // one k or v tile (64 rows)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int kh = a.kh, kw = a.kw;
+  const int n = kh * kw, nb = kh + kw;
+  const FlashLayout L(D, nb);
+  bf16* bsm = reinterpret_cast<bf16*>(ring + L.bias);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L.bars);
+  const int stages = L.stages;
+  uint64_t* empty = full + stages;
+  const int q0 = blockIdx.x * flash_rows(D);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const FlashLayout L(d, nb);
-  const int ldh = L.ldh, ldo = L.ldo;
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* bsm = reinterpret_cast<bf16*>(smem + L.bias);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  unsigned char* wbase = smem + L.warp + warp * (L.s + L.o);
-  float* sw = reinterpret_cast<float*>(wbase);
-  bf16* pw = reinterpret_cast<bf16*>(wbase);  // P reuses the logits slab
-  float* ow = reinterpret_cast<float*>(wbase + L.s);
+  const int ntiles = (n + kFlashKeys - 1) / kFlashKeys;
+  // Warp-uniform, so that the compiler sees whole warpgroups take each
+  // branch below.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
 
-  const long off = b * a.x_b + h * a.x_h;
-  const int chunks = d / 8;  // 16-byte chunks per head row
-
-  // k/v tile `t` into buffer `buf` (zero rows past n), asynchronously.
-  auto load_kv = [&](int t, int buf) {
-    bf16* ks = reinterpret_cast<bf16*>(smem + L.kv * (1 + 2 * buf));
-    bf16* vs = reinterpret_cast<bf16*>(smem + L.kv * (2 + 2 * buf));
-    for (int i = threadIdx.x; i < kFlashTK * chunks; i += blockDim.x) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      const int k = t * kFlashTK + r;
-      const long src = off + (long)(k < n ? k : 0) * a.x_r + c;
-      cp_async16(ks + r * ldh + c, a.k + src, k < n);
-      cp_async16(vs + r * ldh + c, a.v + src, k < n);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * C);
     }
-    cp_async_commit();
-  };
-  load_kv(0, 0);
-
-  for (int i = threadIdx.x; i < kFlashTQ * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const int q = q0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q < n)
-      raw = *reinterpret_cast<const uint4*>(a.q + off + (long)q * a.x_r + c);
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16(__bfloat162float(e[j]) * a.scale);
-    *reinterpret_cast<uint4*>(qs + r * ldh + c) = raw;
+    fence_barrier_init();
   }
-  // Bias rows of the q-tile: [bias_h row | bias_w row] per query.
-  const bf16* bh = a.bias_h + b * a.bh_b + h * a.bh_h;
-  const bf16* bw = a.bias_w + b * a.bw_b + h * a.bw_h;
-  for (int i = threadIdx.x; i < kFlashTQ * nb; i += blockDim.x) {
-    const int t = i / nb, j = i - t * nb;
-    const int q = q0 + t;
-    bf16 v = __float2bfloat16(0.f);
-    if (q < n) v = j < kh ? bh[q * a.bh_r + j] : bw[q * a.bw_r + j - kh];
-    bsm[i] = v;
-  }
-  // Two lanes per query row: lane owns row r of the warp's 16 and the
-  // tile's even (half 0) or odd (half 1) columns.
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const bf16* br = bsm + (warp * 16 + r) * nb;
-  for (int c = half; c < d; c += 2) ow[r * ldo + c] = 0.f;
-  float m = -INFINITY, l = 0.f;
+  __syncthreads();
 
-  const int ntiles = (n + kFlashTK - 1) / kFlashTK;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_kv(it + 1, (it + 1) & 1);
-      cp_async_wait<1>();
+  if (wg == C) {
+    setmaxnreg_dec<kFlashProducerRegs>();
+    if (threadIdx.x == 128 * C) {
+      int stage = 0, phase = 0;
+      for (int i = 0; i < 2 * ntiles; ++i) {
+        const bool with_v = i >= ntiles;
+        const int row = (with_v ? i - ntiles : i) * kFlashKeys;
+        unsigned char* ks = ring + stage * 2 * kTile;
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_expect_tx(full + stage, with_v ? 2 * kTile : kTile);
+        for (int x = 0; x < W / 64; ++x) {
+          tma_load_4d(ks + x * kWideBox, &m.k_wide, full + stage, 64 * x,
+                      c.k + h, row, b);
+          if (with_v)
+            tma_load_4d(ks + kTile + x * kWideBox, &m.v_wide, full + stage,
+                        64 * x, c.v + h, row, b);
+        }
+        for (int x = 0; x < R / 16; ++x) {
+          tma_load_4d(ks + 128 * W + x * kNarrowBox, &m.k_narrow,
+                      full + stage, W + 16 * x, c.k + h, row, b);
+          if (with_v)
+            tma_load_4d(ks + kTile + 128 * W + x * kNarrowBox, &m.v_narrow,
+                        full + stage, W + 16 * x, c.v + h, row, b);
+        }
+        if (++stage == stages) stage = 0, phase ^= 1;
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int ltid = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = wg * 64 + (ltid >> 5) * 16 + g;  // rows r0, r0 + 8
+
+    // The warpgroup's 64 bias rows [bias_h | bias_w], zeros past n: by
+    // 16-byte cp.async where rows and tables are 16-byte aligned (the ViT
+    // grids), else element by element, 16 loads in flight a thread.
+    const bf16* bh = a.bias_h + b * a.bh_b + h * a.bh_h;
+    const bf16* bw = a.bias_w + b * a.bw_b + h * a.bw_h;
+    bf16* mine = bsm + wg * 64 * nb;
+    if (((kh | kw | a.bh_r | a.bw_r) & 7) == 0 &&
+        ((reinterpret_cast<uintptr_t>(bh) | reinterpret_cast<uintptr_t>(bw)) &
+         15) == 0) {
+      const int chunks = nb / 8;
+      for (int i = ltid; i < 64 * chunks; i += 128) {
+        const int r = i / chunks, col = (i - r * chunks) * 8;
+        const int q = q0 + wg * 64 + r;
+        const long qc = q < n ? q : n - 1;
+        cp_async16(mine + r * nb + col,
+                   col < kh ? bh + qc * a.bh_r + col
+                            : bw + qc * a.bw_r + col - kh,
+                   q < n);
+      }
+      cp_async_commit();
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks =
-        reinterpret_cast<const bf16*>(smem + L.kv * (1 + 2 * (it & 1)));
-    const bf16* vs =
-        reinterpret_cast<const bf16*>(smem + L.kv * (2 + 2 * (it & 1)));
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    for (int j = 0; j < kFlashTK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < d; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(qa, qs + warp * 16 * ldh + kk, ldh);
-        wmma::load_matrix_sync(kb, ks + j * 16 * ldh + kk, ldh);
-        wmma::mma_sync(acc, qa, kb, acc);
-      }
-      wmma::store_matrix_sync(sw + j * 16, acc, kFlashLDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax on the row's columns half, 2c + half.
-    const int k_first = it * kFlashTK + half;
-    int yk = k_first / kw, xk = k_first - yk * kw;
-    float sv[kFlashTK / 2];
-    float tmax = -INFINITY;
+      for (int i0 = ltid; i0 < 64 * nb; i0 += 128 * 16) {
+        bf16 v[16];
 #pragma unroll
-    for (int c = 0; c < kFlashTK / 2; ++c) {
-      const int k = k_first + 2 * c;
-      float v = -INFINITY;
-      if (k < n)
-        v = sw[r * kFlashLDS + 2 * c + half] +
-            (__bfloat162float(br[yk]) + __bfloat162float(br[kh + xk]));
-      sv[c] = v;
-      tmax = fmaxf(tmax, v);
-      xk += 2;
-      while (xk >= kw) {
-        xk -= kw;
-        ++yk;
-      }
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    __syncwarp();  // every lane has read its logits: P may overwrite them
-    float psum = 0.f;
+        for (int u = 0; u < 16; ++u) {
+          const int i = i0 + 128 * u;
+          const int r = i / nb, j = i - r * nb;
+          const int q = q0 + wg * 64 + r;
+          v[u] = __float2bfloat16(0.f);
+          if (i < 64 * nb && q < n)
+            v[u] = j < kh ? bh[(long)q * a.bh_r + j]
+                          : bw[(long)q * a.bw_r + j - kh];
+        }
 #pragma unroll
-    for (int c = 0; c < kFlashTK / 2; ++c) {
-      const float p = expf(sv[c] - m_new);  // 0 for keys past n
-      psum += p;
-      pw[r * kFlashLDP + 2 * c + half] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    for (int c = half; c < d; c += 2) ow[r * ldo + c] *= alpha;
-    __syncwarp();
-
-    // O += P V on the tensor cores, accumulating onto the rescaled tile.
-    for (int t = 0; t < d; t += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, ow + t, ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < kFlashTK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, pw + kk, kFlashLDP);
-        wmma::load_matrix_sync(vb, vs + kk * ldh + t, ldh);
-        wmma::mma_sync(acc, pa, vb, acc);
+        for (int u = 0; u < 16; ++u)
+          if (i0 + 128 * u < 64 * nb) mine[i0 + 128 * u] = v[u];
       }
-      wmma::store_matrix_sync(ow + t, acc, ldo, wmma::mem_row_major);
     }
-    __syncthreads();  // the buffer is reloaded two tiles from now
-  }
+    // A fragments of the thread's q rows (zeros past n), scaled and
+    // rounded: k-step kk holds columns 16kk + 2t, + 1 (0: row r0, 1: row
+    // r0 + 8) and 16kk + 8 + 2t, + 1 (2, 3). Up to D = 96 they are loaded
+    // once and held; above, the registers are short and each tile's q k^T
+    // loads them again (from L1), as the row route does its bias_w values
+    // (from shared memory).
+    constexpr bool kHold = D <= 96;
+    const bf16* qb = a.q + b * a.x_b + h * a.x_h + 2 * t4;
+    const int qa = q0 + r0;
+    auto load_q = [&](uint32_t (&qf)[KS][4]) {
+      const uint32_t* x0 =
+          reinterpret_cast<const uint32_t*>(qb + (long)qa * a.x_r);
+      const uint32_t* x1 =
+          reinterpret_cast<const uint32_t*>(qb + (long)(qa + 8) * a.x_r);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        qf[kk][0] = qa < n ? scale_bf16x2(__ldg(x0 + 8 * kk), a.scale) : 0u;
+        qf[kk][1] =
+            qa + 8 < n ? scale_bf16x2(__ldg(x1 + 8 * kk), a.scale) : 0u;
+        qf[kk][2] =
+            qa < n ? scale_bf16x2(__ldg(x0 + 8 * kk + 4), a.scale) : 0u;
+        qf[kk][3] =
+            qa + 8 < n ? scale_bf16x2(__ldg(x1 + 8 * kk + 4), a.scale) : 0u;
+      }
+    };
+    uint32_t qf[KS][4];
+    if constexpr (kHold) load_q(qf);
+    cp_async_wait<0>();
+    named_barrier(1 + wg, 128);  // the warpgroup's bias rows are in
 
-  const int q = q0 + warp * 16 + r;
-  if (q < n) {
-    bf16* o = a.out + b * a.o_b + h * a.o_h + (long)q * a.o_r;
-    for (int c = half; c < d; c += 2)
-      o[c] = __float2bfloat16(ow[r * ldo + c] / l);
+    const bf16* b0 = bsm + r0 * nb;
+    const bf16* b1 = b0 + 8 * nb;
+    // kRowTile: bias_w * log2 e at the thread's columns, held as q is.
+    float bw0[16], bw1[16];
+    auto load_bias_w = [&]() {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int x = kh + 8 * (j >> 1) + 2 * t4 + (j & 1);
+        bw0[j] = __bfloat162float(b0[x]) * kLog2e;
+        bw1[j] = __bfloat162float(b1[x]) * kLog2e;
+      }
+    };
+    if constexpr (kRowTile && kHold) load_bias_w();
+    const uint32_t raddr = smem_addr(ring);
+
+    // s = q k^T of the k tile in `stage` for the warpgroup's 64 rows
+    // (issued, not waited for).
+    float s[32];
+    auto issue_scores = [&](int stage) {
+      if constexpr (!kHold) load_q(qf);
+      const uint32_t k = raddr + stage * 2 * kTile;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        WgmmaRS<64, 0>::run(
+            s, qf[kk],
+            kk < W / 16
+                ? wgmma_desc(k + kk / 4 * kWideBox + kk % 4 * 32, 16, 1024,
+                             kSwizzle128)
+                : wgmma_desc(k + 128 * W + (kk - W / 16) * kNarrowBox, 16,
+                             256, kSwizzle32),
+            kk);
+    };
+    // s -> (s + bias) log2 e of key tile t, in place, but for a per-row
+    // term returned in c0, c1 (kRowTile: bias_h of grid row t; else 0,
+    // with keys past n at -inf).
+    auto logits = [&](int t, float& c0, float& c1) {
+      if constexpr (kRowTile) {
+        if constexpr (!kHold) load_bias_w();
+        c0 = __bfloat162float(b0[t]) * kLog2e;
+        c1 = __bfloat162float(b1[t]) * kLog2e;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int e = 4 * (j >> 1) + (j & 1);
+          s[e] = fmaf(s[e], kLog2e, bw0[j]);
+          s[e + 2] = fmaf(s[e + 2], kLog2e, bw1[j]);
+        }
+      } else {
+        c0 = c1 = 0.f;
+        // Keys key, key + 1 of pair j at grid (y, x) and after; pair j + 1
+        // is 8 keys on.
+        int key = t * kFlashKeys + 2 * t4;
+        int y = key / kw, x = key - y * kw;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j > 0) {
+            key += 8, x += 8;
+            while (x >= kw) x -= kw, ++y;
+          }
+          const bool wrap = x + 1 == kw;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ye = e && wrap ? y + 1 : y;
+            const int xe = kh + (e ? (wrap ? 0 : x + 1) : x);
+            float z0 = -INFINITY, z1 = -INFINITY;
+            if (key + e < n) {
+              z0 = fmaf(s[4 * j + e], kLog2e,
+                        (__bfloat162float(b0[ye]) + __bfloat162float(b0[xe])) *
+                            kLog2e);
+              z1 = fmaf(s[4 * j + 2 + e], kLog2e,
+                        (__bfloat162float(b1[ye]) + __bfloat162float(b1[xe])) *
+                            kLog2e);
+            }
+            s[4 * j + e] = z0;
+            s[4 * j + 2 + e] = z1;
+          }
+        }
+      }
+    };
+    // Close the group of products just issued and wait for it.
+    auto finish = [&]() {
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+    };
+
+    // Pass 1: each thread's max and sum over its columns, rows r0 and
+    // r0 + 8, in log2 units.
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    int stage = 0, phase = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      mbar_wait(full + stage, phase);
+      wgmma_fence();
+      issue_scores(stage);
+      finish();
+      if (lane == 0) mbar_arrive(empty + stage);
+      float c0, c1;
+      logits(t, c0, c1);
+      float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (e & 2)
+          x1 = fmaxf(x1, s[e]);
+        else
+          x0 = fmaxf(x0, s[e]);
+      }
+      const float n0 = fmaxf(m0, x0 + c0), n1 = fmaxf(m1, x1 + c1);
+      // A thread that has seen only masked keys keeps (-inf, 0).
+      const float u0 = n0 == -INFINITY ? 0.f : n0;
+      const float u1 = n1 == -INFINITY ? 0.f : n1;
+      const float o0 = u0 - c0, o1 = u1 - c1;
+      float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (e & 2)
+          e1 += fast_exp2(s[e] - o1);
+        else
+          e0 += fast_exp2(s[e] - o0);
+      }
+      l0 = l0 * fast_exp2(m0 - u0) + e0;
+      l1 = l1 * fast_exp2(m1 - u1) + e1;
+      m0 = n0, m1 = n1;
+      if (++stage == stages) stage = 0, phase ^= 1;
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float mo0 = __shfl_xor_sync(0xffffffffu, m0, o);
+      const float lo0 = __shfl_xor_sync(0xffffffffu, l0, o);
+      const float mo1 = __shfl_xor_sync(0xffffffffu, m1, o);
+      const float lo1 = __shfl_xor_sync(0xffffffffu, l1, o);
+      merge_stats(m0, l0, mo0, lo0);
+      merge_stats(m1, l1, mo1, lo1);
+    }
+    // p = 2^(z - m) / l = 2^(z - (m + log2 l)).
+    const float g0 = m0 + __log2f(l0), g1 = m1 + __log2f(l1);
+
+    // Pass 2: O = P V. Step t issues tile t - 1's P V, then tile t's
+    // scores, and forms tile t's P.
+    float ow[W ? W / 2 : 1], onr[R ? R / 2 : 1];  // O: the two column sets
+    uint32_t pa[4][4];  // A fragments of k-steps over keys 16kk..16kk+15
+    int prev = 0;       // stage of tile t - 1
+    for (int t = 0; t <= ntiles; ++t) {
+      if (t < ntiles) mbar_wait(full + stage, phase);
+      wgmma_fence();
+      if (t > 0) {
+        const uint32_t v = raddr + prev * 2 * kTile + kTile;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (W > 0)
+            WgmmaRS<W, 1>::run(
+                ow, pa[kk],
+                wgmma_desc(v + kk * 16 * 128, kWideBox, 1024, kSwizzle128),
+                t > 1 || kk > 0);
+          if constexpr (R > 0)
+            WgmmaRS<R, 1>::run(onr, pa[kk],
+                               wgmma_desc(v + 128 * W + kk * 16 * 32,
+                                          kNarrowBox, 256, kSwizzle32),
+                               t > 1 || kk > 0);
+        }
+      }
+      if (t < ntiles) issue_scores(stage);
+      finish();
+      fence_regs(ow);
+      fence_regs(onr);
+      if (t > 0 && lane == 0) mbar_arrive(empty + prev);
+      if (t == ntiles) break;
+      float c0, c1;
+      logits(t, c0, c1);
+      c0 -= g0, c1 -= g1;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* x = s + 8 * kk;
+        pa[kk][0] = pack_bf16(fast_exp2(x[0] + c0), fast_exp2(x[1] + c0));
+        pa[kk][1] = pack_bf16(fast_exp2(x[2] + c1), fast_exp2(x[3] + c1));
+        pa[kk][2] = pack_bf16(fast_exp2(x[4] + c0), fast_exp2(x[5] + c0));
+        pa[kk][3] = pack_bf16(fast_exp2(x[6] + c1), fast_exp2(x[7] + c1));
+      }
+      prev = stage;
+      if (++stage == stages) stage = 0, phase ^= 1;
+    }
+
+    bf16* out = a.out + b * a.o_b + h * a.o_h + 2 * t4;
+    // Columns col, col + 1 of rows qa and qa + 8.
+    auto put = [&](int col, float x0, float x1, float y0, float y1) {
+      if (qa < n)
+        *reinterpret_cast<uint32_t*>(out + (long)qa * a.o_r + col) =
+            pack_bf16(x0, x1);
+      if (qa + 8 < n)
+        *reinterpret_cast<uint32_t*>(out + (long)(qa + 8) * a.o_r + col) =
+            pack_bf16(y0, y1);
+    };
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+      put(8 * j, ow[4 * j], ow[4 * j + 1], ow[4 * j + 2], ow[4 * j + 3]);
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+      put(W + 8 * j, onr[4 * j], onr[4 * j + 1], onr[4 * j + 2],
+          onr[4 * j + 3]);
   }
 }
 
@@ -522,17 +756,117 @@ int relpos_window_blocks_per_sm(int kh, int kw, int d) {
   return err ? -err : blocks;
 }
 
-int launch_relpos_flash(const RelposArgs& a, int heads, int batch,
-                        cudaStream_t stream) {
-  const FlashLayout L(a.d, a.kh + a.kw);
-  cudaError_t err = cudaFuncSetAttribute(
-      relpos_flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return (int)err;
+// cuTensorMapEncodeTiled from the driver, through the runtime: the
+// library is not linked against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of one operand: boxes of `cols` columns x 1 head x 64 rows x 1,
+// swizzled to match (64: 128 bytes; 16: 32), zeros outside the tensor.
+static bool flash_map(CUtensorMap* map, const FlashOperand& x, int d, int n,
+                      int batch, int cols) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)x.heads,
+                              (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {2 * (cuuint64_t)x.head,
+                                 2 * (cuuint64_t)x.row,
+                                 2 * (cuuint64_t)x.batch};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)kFlashKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x.base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+typedef void (*FlashKernel)(const FlashMaps, const RelposArgs,
+                            const FlashHeads);
+
+// The flash body's instance for head dim d and route, or null.
+static FlashKernel flash_kernel(int d, bool row_tile) {
+#define SAMPT_FLASH_CASE(D)                                   \
+  case D:                                                     \
+    return row_tile ? relpos_flash_kernel<D, true>            \
+                    : relpos_flash_kernel<D, false>;
+  switch (d) {
+    SAMPT_FLASH_CASE(16)
+    SAMPT_FLASH_CASE(32)
+    SAMPT_FLASH_CASE(48)
+    SAMPT_FLASH_CASE(64)
+    SAMPT_FLASH_CASE(80)
+    SAMPT_FLASH_CASE(96)
+    SAMPT_FLASH_CASE(112)
+    SAMPT_FLASH_CASE(128)
+  }
+#undef SAMPT_FLASH_CASE
+  return nullptr;
+}
+
+// Its shared-memory limit.
+static int flash_attributes(FlashKernel kernel, size_t bytes) {
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+int launch_relpos_flash(const RelposArgs& a, const FlashOperand (&kv)[2],
+                        int heads, int batch, cudaStream_t stream) {
   const int n = a.kh * a.kw;
-  relpos_flash_kernel<<<dim3((n + kFlashTQ - 1) / kFlashTQ, heads, batch),
-                        kRelposWarps * 32, L.total, stream>>>(a);
+  const FlashLayout L(a.d, a.kh + a.kw);
+  const FlashKernel kernel = flash_kernel(a.d, a.kw == kFlashKeys);
+  const int err = flash_attributes(kernel, L.total);
+  if (err) return err;
+  // The maps a head dim needs: 64-column boxes up to its last multiple
+  // of 64, 16-column boxes past it.
+  const int wide = a.d / 64 * 64;
+  FlashMaps m = {};
+  if ((wide > 0 && (!flash_map(&m.k_wide, kv[0], a.d, n, batch, 64) ||
+                    !flash_map(&m.v_wide, kv[1], a.d, n, batch, 64))) ||
+      (a.d > wide && (!flash_map(&m.k_narrow, kv[0], a.d, n, batch, 16) ||
+                      !flash_map(&m.v_narrow, kv[1], a.d, n, batch, 16))))
+    return (int)cudaErrorInvalidValue;
+  const FlashHeads c = {kv[0].head0, kv[1].head0};
+  const int rows = flash_rows(a.d);
+  kernel<<<dim3((n + rows - 1) / rows, heads, batch), flash_threads(a.d),
+           L.total, stream>>>(m, a, c);
   return (int)cudaGetLastError();
+}
+
+int relpos_flash_blocks_per_sm(int kh, int kw, int d) {
+  const FlashLayout L(d, kh + kw);
+  const FlashKernel kernel = flash_kernel(d, kw == kFlashKeys);
+  int err = flash_attributes(kernel, L.total);
+  int blocks = 0;
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, flash_threads(d), L.total);
+  return err ? -err : blocks;
 }
 
 }  // namespace sampt

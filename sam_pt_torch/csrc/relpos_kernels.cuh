@@ -11,20 +11,28 @@
 //     added by the same product through a one-hot block) and runs the
 //     exact softmax (p normalised, then rounded to bf16). Two blocks share
 //     an SM. K1, and K4 up to 208 tokens with kh + kw < 32.
-//   relpos_flash_kernel (the flash body): one block per (64-row q-tile,
-//     head, batch) walks the keys in double-buffered tiles of 64 with an
-//     online softmax (p rounded to bf16 before the division by the row
-//     sum), on warp-level 16x16x16 WMMA tiles through per-warp f32 slabs.
-//     K2, and K4 otherwise.
+//   relpos_flash_kernel (the flash body): one block per (192 query rows,
+//     head, batch; 128 above d = 80): three (two) consumer warpgroups of
+//     64 rows and a producer
+//     warpgroup whose one thread keeps TMA copies of 64-key k/v tiles in
+//     flight through a ring of up to 8 stages (full/empty mbarriers). Two
+//     passes over the keys give the exact softmax: pass 1 streams k and
+//     keeps each row's max and sum, pass 2 streams k and v and forms p
+//     normalised, then rounded to bf16, in registers as the A operand of
+//     P . V. Both
+//     products are wgmma with the A operand in registers (q.k^T m64n64k16,
+//     p.v m64nDk16); Q, S, P and O stay in registers. K2, and K4
+//     otherwise.
 //
 // Both compute, per problem (N = kh * kw tokens, D = head dim, key j at
 // (y_j, x_j) = (j / kw, j % kw)):
 //   logit[i, j] = round_bf16(q_i * scale) . k_j  (f32)
 //                 + (bias_h[i, y_j] + bias_w[i, x_j])
-//   out[i]      = softmax_j(logit[i, :]) . v   (f32 accumulation, one
-//                                               rounding at the output)
-// Both products run on the tensor cores (bf16 in, f32 sums); k and v
-// arrive by 16-byte cp.async copies; rows past N are masked.
+//   p[i, j]     = round_bf16(softmax_j(logit[i, :]))  (normalised, then
+//                                                      rounded)
+//   out[i]      = round_bf16(p[i, :] . v)   (f32 accumulation)
+// Both products run on the tensor cores (bf16 in, f32 sums); rows past N
+// are masked.
 #pragma once
 
 #include "common.cuh"
@@ -71,30 +79,57 @@ struct WindowLayout {
 };
 
 // ---------------------------------------------------------------------------
-// Flash body: key tiles with an online softmax
+// Flash body: two passes over TMA-fed key tiles, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kRelposWarps = 4;  // warps per block of the flash body
+constexpr int kFlashKeys = 64;    // keys a tile
+constexpr int kFlashMaxStages = 8;  // k/v tiles in flight, at most
+constexpr int kFlashProducerRegs = 24;  // registers a producer thread
 
-constexpr int kFlashTQ = 16 * kRelposWarps;  // query rows per block
-constexpr int kFlashTK = 64;                 // keys per tile
-constexpr int kFlashLDS = kFlashTK + 4;      // f32 logits row stride
-constexpr int kFlashLDP = kFlashTK + 8;      // bf16 P row stride (aliases logits)
-static_assert(kFlashTQ == kFlashTK, "q and k/v tiles share one buffer size");
+// Consumer warpgroups of 64 query rows a block at head dim d: three while
+// their share of the SM's registers (160 a thread) holds q, S, P and O
+// without spills; two above (240).
+__host__ __device__ constexpr int flash_consumers(int d) {
+  return d <= 80 ? 3 : 2;
+}
+__host__ __device__ constexpr int flash_rows(int d) {  // query rows a block
+  return 64 * flash_consumers(d);
+}
+__host__ __device__ constexpr int flash_threads(int d) {  // + the producer
+  return 128 * (flash_consumers(d) + 1);
+}
 
+// Where k or v lies, for its TMA map: a 4D tensor of bf16 (d, heads,
+// rows, batch), innermost first; strides in elements; the block of head h
+// reads head `head0 + h`.
+struct FlashOperand {
+  const void* base;
+  int heads, head0;
+  long head, row, batch;
+};
+
+// Shared memory, from a 1024-byte aligned base: the ring of stages (a k
+// tile, then a v tile, of 64 rows each; a tile is boxes of 64 columns by
+// 64 rows, 8 KB each, 128-byte swizzled, up to the last multiple of 64
+// columns, then boxes of 16 columns, 2 KB each, 32-byte swizzled), the
+// block's bias rows [flash_rows(d), kh + kw], the barriers. As many stages
+// as fit, up to 8 (8 at ViT-H's 64 x 64 x 80); fewer than 2 do not run.
 struct FlashLayout {
-  int ldh, ldo;
-  size_t q, kv, bias, warp, s, o, total;
+  int stages;
+  size_t bias, bars, total;
   __host__ __device__ FlashLayout(int d, int nb) {
-    ldh = d + 8;  // bf16 q/k/v row stride (a multiple of 8, 16-byte rows)
-    ldo = d + 4;  // f32 output row stride
-    q = 0;
-    kv = align16(sizeof(__nv_bfloat16) * kFlashTQ * ldh);  // one k or v tile
-    bias = q + kv + 4 * kv;  // q, then k0 v0 k1 v1
-    warp = bias + align16(sizeof(__nv_bfloat16) * kFlashTQ * nb);
-    s = align16(sizeof(float) * 16 * kFlashLDS);
-    o = align16(sizeof(float) * 16 * ldo);
-    total = warp + kRelposWarps * (s + o);
+    const size_t tile = sizeof(__nv_bfloat16) * kFlashKeys * d;
+    const size_t rows =
+        align16(sizeof(__nv_bfloat16) * flash_rows(d) * nb);
+    const size_t fixed =
+        rows + sizeof(unsigned long long) * 2 * kFlashMaxStages + 1024;
+    const size_t room =
+        kMaxSharedBytes > fixed ? (kMaxSharedBytes - fixed) / (2 * tile) : 0;
+    stages = room < kFlashMaxStages ? (int)room : kFlashMaxStages;
+    bias = 2 * tile * stages;
+    bars = bias + rows;
+    total = bars + sizeof(unsigned long long) * 2 * stages +
+            1024;  // room to align the base
   }
 };
 
@@ -109,9 +144,15 @@ int launch_relpos_window(const RelposArgs& a, int heads, int batch,
 // occupancy calculator gives them with the launcher's attributes set, or
 // minus a cudaError_t.
 int relpos_window_blocks_per_sm(int kh, int kw, int d);
-// Flash: grid (ceil(n / kFlashTQ), heads, batch), FlashLayout(d, kh +
-// kw).total bytes of dynamic shared memory.
-int launch_relpos_flash(const RelposArgs& a, int heads, int batch,
-                        cudaStream_t stream);
+// Flash: grid (ceil(n / flash_rows(d)), heads, batch), FlashLayout(d, kh +
+// kw).total bytes of dynamic shared memory; q is read through
+// RelposArgs' q and strides, k and v through TMA maps of `kv` (built
+// here, on every call). Returns cudaErrorInvalidValue if a map cannot be
+// built.
+int launch_relpos_flash(const RelposArgs& a, const FlashOperand (&kv)[2],
+                        int heads, int batch, cudaStream_t stream);
+// Blocks of the flash body resident on one SM at (kh, kw, d), as for the
+// window body.
+int relpos_flash_blocks_per_sm(int kh, int kw, int d);
 
 }  // namespace sampt

@@ -84,6 +84,8 @@ class SamPt:
         point_tracker_mask_batch_size: int = 5,
         iterative_refinement_iterations: int = 0,
         use_patch_matching_filtering: bool = False,
+        patch_size: int = 3,
+        patch_similarity_threshold: float = 0.01,
         use_point_reinit: bool = False,
         reinit_point_tracker_horizon: int = 24,
         reinit_horizon: int = 24,
@@ -91,12 +93,18 @@ class SamPt:
         fail_on_empty_reinit_mask: bool = False,
         sam_decode_chunk: int = 32,
         sam_encode_chunk: int = 4,
+        upload_chunk: Optional[int] = None,
         seed: int = 72,
+        data_parallel: bool = False,
+        mesh=None,
         logits_dtype: torch.dtype = torch.float16,
     ):
         if use_patch_matching_filtering:
             raise NotImplementedError(
                 "patch-matching filtering is not ported yet")
+        if data_parallel or mesh is not None:
+            raise NotImplementedError(
+                "data parallelism over several devices is not ported yet")
         if reinit_point_tracker_horizon < reinit_horizon:
             raise ValueError("reinit_point_tracker_horizon must be at least "
                              "reinit_horizon")
@@ -112,6 +120,10 @@ class SamPt:
         self.max_other_objects_positive_points = max_other_objects_positive_points
         self.point_tracker_mask_batch_size = point_tracker_mask_batch_size
         self.iterative_refinement_iterations = iterative_refinement_iterations
+        # Read by patch-matching filtering, which is not ported yet.
+        self.use_patch_matching_filtering = use_patch_matching_filtering
+        self.patch_size = patch_size
+        self.patch_similarity_threshold = patch_similarity_threshold
         self.use_point_reinit = use_point_reinit
         self.reinit_point_tracker_horizon = reinit_point_tracker_horizon
         self.reinit_horizon = reinit_horizon
@@ -119,6 +131,11 @@ class SamPt:
         self.fail_on_empty_reinit_mask = fail_on_empty_reinit_mask
         self.sam_decode_chunk = sam_decode_chunk
         self.sam_encode_chunk = sam_encode_chunk
+        # Host-to-device upload granularity in the JAX package; the port
+        # uploads each video in one copy, so it is kept and not used.
+        self.upload_chunk = upload_chunk
+        self.data_parallel = data_parallel
+        self.mesh = mesh
         self.logits_dtype = logits_dtype
         self.rng = np.random.default_rng(seed)
         # (direction, start, end, tracked masks) of every horizon window the
@@ -132,9 +149,9 @@ class SamPt:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, video: Dict) -> Dict:
-        """video: 'image' [T, H, W, 3] uint8 numpy, 'target_hw' (h, w), and
-        either 'query_masks' [M, H, W] with 'query_point_timestep' [M], or
-        'query_points' [M, P, 3] (t, x, y).
+        """video: 'image' [T, H, W, 3] (or [T, 3, H, W]) uint8 numpy,
+        'target_hw' (h, w), and either 'query_masks' [M, H, W] with
+        'query_point_timestep' [M], or 'query_points' [M, P, 3] (t, x, y).
 
         Returns device tensors: logits [M, T, h, w] float16 (-inf planes
         where a pair was gated or never decoded), scores [M],
@@ -142,6 +159,8 @@ class SamPt:
         visibilities [T, M, P].
         """
         images = np.asarray(video["image"])
+        if images.ndim == 4 and images.shape[1] == 3 and images.shape[-1] != 3:
+            images = np.ascontiguousarray(images.transpose(0, 2, 3, 1))
         if images.dtype != np.uint8:
             raise ValueError("input images must be uint8 (0-255)")
         t, h, w, _ = images.shape

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "sam_relpos_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _P],
     "sam_window_blocks_per_sm": [_I, _I, _I],
+    "sam_flash_blocks_per_sm": [_I, _I, _I],
 }
 
 

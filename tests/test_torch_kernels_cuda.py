@@ -2,17 +2,19 @@
 on the card, in bfloat16 at the main path's shapes (ViT-H windows and global
 blocks, 48 decoder pairs, K3 token -> image also at ragged shapes; K4 at
 ViT-H global width and over ViT-H windows; the window body also at head
-dims 64 and 128 and over small, rectangular and ragged windows). Needs a
-CUDA device; skipped without one. This
+dims 64 and 128 and over small, rectangular and ragged windows; the flash
+body also at ViT-B/L widths, on ragged grids and at head dims 16 and
+128). Needs a CUDA device; skipped without one. This
 file imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerance, as in chip_smoke.py: |got - ref| <= 1e-2 + 2^-6 |ref|. Both
-sides round the output to bf16 (one ulp is up to 2^-7 relative), and K2's
-online softmax rounds p before normalising, so two ulps, plus 1e-2 for
-values near zero. K4's two routes through one `Attention` agree within
-1e-2 relative L2 (the same body, bias einsums in two layouts).
+sides normalise p before rounding it to bf16 and round the output once;
+f32 sums in another order and ex2.approx may tip a rounding (one output
+ulp is up to 2^-7 relative), so two ulps, plus 1e-2 for values near zero.
+K4's two routes through one `Attention` agree within 1e-2 relative L2
+(the same body, bias einsums in two layouts).
 """
 import pytest
 import torch
@@ -72,6 +74,13 @@ class TestKernelsOnCard:
 
         assert library().sam_window_blocks_per_sm(14, 14, 80) == 2
 
+    def test_flash_body_one_block_per_sm(self, gen):
+        """At ViT-H's 64 x 64 x 80 the flash body's 512 threads and its
+        ring of k/v stages fill an SM with one block."""
+        from sam_pt_torch.ops._cuda import library
+
+        assert library().sam_flash_blocks_per_sm(64, 64, 80) == 1
+
     def test_global_k2(self, gen):
         qkv = _randn(gen, 1, 4096, 3 * 16 * 80)
         rh, rw = _randn(gen, 64, 64, 80, std=0.2), _randn(gen, 64, 64, 80,
@@ -80,6 +89,21 @@ class TestKernelsOnCard:
         kw = dict(scale=80 ** -0.5, heads=16, kh=64, kw=64)
         _close(fa.global_attention_cuda(qkv, bias, **kw),
                fa.global_attention_plain(qkv, bias, **kw))
+
+    @pytest.mark.parametrize("heads,d,kh,kw", [
+        (12, 64, 64, 64), (16, 64, 64, 64), (16, 80, 40, 50)])
+    def test_global_k2_widths_and_grids(self, gen, heads, d, kh, kw):
+        """The flash body at ViT-B's and ViT-L's heads (12 and 16 x 64)
+        over 64 x 64 tokens, and on a 40 x 50 grid (2000 tokens: neither a
+        multiple of the 128-row query tile nor of the 64-key tile, and
+        bias_w is no 64-key row: the gathered-bias route)."""
+        qkv = _randn(gen, 2, kh * kw, 3 * heads * d)
+        rh, rw = _randn(gen, kh, kh, d, std=0.2), _randn(gen, kw, kw, d,
+                                                          std=0.2)
+        bias = fa.global_bias(qkv, rh, rw, heads, kh, kw)
+        kwa = dict(scale=d ** -0.5, heads=heads, kh=kh, kw=kw)
+        _close(fa.global_attention_cuda(qkv, bias, **kwa),
+               fa.global_attention_plain(qkv, bias, **kwa))
 
     @pytest.mark.parametrize("case", list(K3_CASES))
     def test_cross_k3(self, gen, case):
@@ -102,12 +126,14 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("b,kh,kw,d", [
         (64, 64, 64, 80), (2, 16, 70, 80), (64, 15, 15, 80),  # flash
+        (16, 64, 64, 16), (16, 64, 64, 128),
         (1600, 14, 14, 80), (64, 7, 20, 80), (64, 10, 10, 80),  # window
         (64, 4, 5, 80), (64, 14, 14, 128)])
     def test_relpos_k4(self, gen, b, kh, kw, d):
         """The flash body (ViT-H global width; a rectangle with a ragged
-        last q- and k-tile; 225 tokens, just above the window body) and the
-        window body (ViT-H windows; a 7 x 20 rectangle; 100 tokens, no
+        last q- and k-tile; 225 tokens, just above the window body; head
+        dims 16 and 128 over 64 x 64, the least and the most it takes) and
+        the window body (ViT-H windows; a 7 x 20 rectangle; 100 tokens, no
         multiple of 16; 20 tokens, 2 row tiles for 4 warps; head dim 128,
         one block per SM)."""
         q, k, v = (_randn(gen, b, kh * kw, d) for _ in range(3))

@@ -8,14 +8,18 @@ Phases, in order; any failure exits non-zero before the verdict line:
   1. The card's name and power limit (nvidia-smi), torch/CUDA versions.
   2. Build the CUDA kernels from `sam_pt_torch/csrc` (nvcc, sm_90a).
   3. Kernel phase: the window and flash bodies' resident blocks per SM at
-     ViT-H's shapes, then K1/K2/K3 against their plain PyTorch versions at
-     the main path's shapes in bf16 (seeded inputs), K4 in both its regimes
+     ViT-H's shapes and K3 image->token's at the decoder's 8 heads, then
+     K1/K2/K3 against their plain PyTorch versions at the main path's
+     shapes in bf16 (seeded inputs), K4 in both its regimes
      (ViT-H global width, 64 x 4096 x 80; ViT-H windows, 1600 x 196 x 80),
      max abs error against a stated tolerance, and CUDA-event times
-     (median of 5 runs) of the kernel, its plain version and one PyTorch
-     call of the same function (`scaled_dot_product_attention` on
-     head-split views, the rel-pos bias as a materialised mask), beside
-     the kernel's bound (`attention_roofline`).
+     (single calls, median of 5 runs) of the kernel, its plain version and
+     one PyTorch call of the same function (`scaled_dot_product_attention`
+     on head-split views, the rel-pos bias as a materialised mask), the
+     kernel and that call also over 50 back-to-back calls (`loop_ms`,
+     with the host's time a call to queue them) and, with --profile, by
+     the profiler's device time (`profiled_ms`), beside the kernel's bound
+     (`attention_roofline`).
   4. Slice phase: the port's SamPt (SAM ViT-H + CoTracker, random bf16
      weights from a seeded generator, two output biases set so that points
      are visible and masks pass the IoU gate) over two DAVIS-shaped 480 x 854
@@ -64,8 +68,11 @@ import torch
 # (one output ulp is up to 2^-7 relative): two ulps, plus 1e-2 for values
 # near 0.
 ATOL, RTOL = 1e-2, 2 ** -6
-# Per-kernel numbers of the JSON line (a second case adds a suffix).
-TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+# Per-kernel numbers of the JSON line (a second case adds a suffix): `ms`,
+# `plain_ms` and `library_ms` time single calls (`cuda_ms`), `loop_ms` and
+# `library_loop_ms` back-to-back calls (`loop_ms`).
+TIMES = ("ms", "loop_ms", "plain_ms", "library_ms", "library_loop_ms",
+         "bound_ms", "bound_by")
 VIDEOS = [(24, 1), (35, 3)]  # (frames, objects) at 480 x 854
 H, W = 480, 854
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): dense bf16 tensor
@@ -86,7 +93,10 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of `fn` in ms, after one warm-up call."""
+    """Median CUDA-event time of `fn` in ms, after one warm-up call. The
+    events enclose one call from the host, so the time includes the host
+    work that comes before the launch (the wrapper's checks, the output's
+    allocation, the ctypes call) where that is longer than the queue."""
     fn()
     times = []
     for _ in range(reps):
@@ -98,6 +108,52 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def loop_ms(fn, calls: int = 50) -> tuple:
+    """The CUDA-event time of `calls` back-to-back calls of `fn` divided by
+    `calls`, in ms, after one warm-up call: one event before the first
+    call and one after the last, so the host's work for each call overlaps
+    the device's work for the calls queued before it. Also the host's time
+    a call to queue them: where that is as long, the host bounds the
+    loop."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, host * 1e3 / calls
+
+
+def self_cuda_us(table: str) -> float:
+    """The device time of a torch.profiler table, from its own footer
+    (operators and the kernels they launch both carry device time, so a
+    sum over the rows would count it twice)."""
+    found = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
+    return float(found.group(1)) * {"us": 1, "ms": 1e3,
+                                    "s": 1e6}[found.group(2)]
+
+
+def profiled_ms(fn, calls: int = 20) -> float:
+    """Device time a call of `fn` in ms by torch.profiler (the kernels'
+    own durations, no launch or host time), over `calls` calls after one
+    warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return self_cuda_us(prof.key_averages().table()) / 1e3 / calls
 
 
 def tensor_bytes(*tensors) -> int:
@@ -216,7 +272,8 @@ def kernel_cases(fa, device) -> dict:
 
     # K3: 48 pairs, 8 heads x 16; 60 prompt + output tokens, 4096 image
     # tokens. Token -> image unmasked, with k and v distinct as in the
-    # decoder (keys + key_pe against keys); image -> token with a key mask.
+    # decoder (keys + key_pe against keys); image -> token with a key mask
+    # (padded prompts) and without (one object), two kernel instances.
     kc = dict(heads=8, divisor=4.0)
 
     def cross():
@@ -227,18 +284,21 @@ def kernel_cases(fa, device) -> dict:
                 library_cross(tok, k, v, **kc),
                 (tok, k, v), (48 * 8, 60, 4096, 16))
 
-    def cross_masked():
+    def cross_masked(masked=True):
         img, k, v = randn(48, 4096, 128), randn(48, 60, 128), randn(
             48, 60, 128)
         valid = torch.rand((48, 60), generator=g, device=device) > 0.3
         valid[:, :5] = True
         valid_u8 = valid.to(torch.uint8)
+        if not masked:
+            valid = valid_u8 = None
         return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
                                                 **kc),
                 lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
                                                  **kc),
                 library_cross(img, k, v, kv_valid=valid, **kc),
-                (img, k, v, valid_u8), (48 * 8, 4096, 60, 16))
+                tuple(t for t in (img, k, v, valid_u8) if t is not None),
+                (48 * 8, 4096, 60, 16))
 
     # K4 from 1024 tokens (flash): 4 frames x 16 heads over 64 x 64 tokens;
     # below (whole problem per block): 100 windows x 16 heads of 14 x 14.
@@ -252,6 +312,7 @@ def kernel_cases(fa, device) -> dict:
 
     return {"window": window, "global": global_, "cross": cross,
             "cross_masked": cross_masked,
+            "cross_unmasked": lambda: cross_masked(False),
             "relpos": lambda: relpos(64, 64, 64),
             "relpos_window": lambda: relpos(1600, 14, 14)}
 
@@ -272,10 +333,11 @@ def build_phase() -> None:
             log(f"  ptxas: {line.strip()}")
 
 
-def kernel_phase(fa, device) -> dict:
+def kernel_phase(fa, device, profiling: bool = False) -> dict:
     """The window and flash bodies' resident blocks per SM at ViT-H's
-    shapes, then each case of `kernel_cases`: agreement with the plain
-    version, times, bound."""
+    shapes and K3 image->token's at SAM's, then each case of
+    `kernel_cases`: agreement with the plain version, times (with
+    `profiling`, also the profiler's device time), bound."""
     from sam_pt_torch.ops import _cuda
 
     blocks = _cuda.library().sam_window_blocks_per_sm(14, 14, 80)
@@ -288,6 +350,13 @@ def kernel_phase(fa, device) -> dict:
         f"tokens, head dim 80 (occupancy calculator)")
     if blocks < 1:
         raise SystemExit("the flash body cannot run at ViT-H's global grid")
+    for masked in (True, False):
+        blocks = _cuda.library().sam_cross_i2t_blocks_per_sm(8, masked, True)
+        log(f"kernel K3 image->token: {blocks} blocks resident per SM at 8 "
+            f"heads x 16, {'with' if masked else 'without'} the key mask "
+            f"(occupancy calculator)")
+        if blocks < 1:
+            raise SystemExit("K3 image->token cannot run at SAM's heads")
     report = {}
     for name, make in kernel_cases(fa, device).items():
         kernel, plain, library, inputs, shape = make()
@@ -302,19 +371,32 @@ def kernel_phase(fa, device) -> dict:
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain)
         library_ms = cuda_ms(library)
+        (kernel_loop, kernel_host), (library_loop, library_host) = (
+            loop_ms(kernel), loop_ms(library))
+        profiled = ""
+        if profiling:
+            profiled = (f"; device time by the profiler: kernel "
+                        f"{profiled_ms(kernel):.4f} ms library "
+                        f"{profiled_ms(library):.4f} ms")
         log(f"kernel {name}: {got.dtype} shape {tuple(got.shape)} "
             f"max_abs_err {err:.3e} (|err| <= {ATOL:g} + {RTOL:g}|ref|: "
             f"worst {ratio:.3f} of the bound) kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
-            f"(kernel / library {ms / library_ms:.2f}) bound "
+            f"(kernel / library {ms / library_ms:.2f}); back to back: "
+            f"kernel {kernel_loop:.4f} ms library {library_loop:.4f} ms "
+            f"(kernel / library {kernel_loop / library_loop:.2f}; host "
+            f"{kernel_host:.4f} and {library_host:.4f} ms a call to queue "
+            f"them){profiled}; bound "
             f"{roof['bound_ms']:.4f} ms by {roof['bound_by']} "
             f"({roof['flop'] / 1e9:.2f} GFLOP, {roof['bytes'] / 1e6:.1f} MB; "
             f"{100 * roof['bound_ms'] / ms:.1f}% of it) "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version")
-        report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=roof["bound_ms"],
+        report[name] = dict(max_abs_err=err, ms=ms, loop_ms=kernel_loop,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            library_loop_ms=library_loop,
+                            bound_ms=roof["bound_ms"],
                             bound_by=roof["bound_by"])
         del kernel, plain, library, inputs, got, ref, diff
         torch.cuda.empty_cache()
@@ -660,8 +742,8 @@ def profile_phase(sam_pt, video, fuse, card: str) -> None:
 
 
 def device_profile(label: str, run, card: str) -> None:
-    """One `run()` under torch.profiler: wall, device busy share and the
-    top kernels by device time; the table goes to
+    """One `run()` under torch.profiler: wall, device busy share, the top
+    kernels by device time and the port's own; the table goes to
     chiprun_out/profile_<label>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,25 +756,66 @@ def device_profile(label: str, run, card: str) -> None:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=60)
-    # Operators and the kernels they launch both carry device time, so the
-    # busy total is the profiler's own footer, not a sum over the rows.
-    found = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
-    device_us = float(found.group(1)) * {"us": 1, "ms": 1e3,
-                                         "s": 1e6}[found.group(2)]
+    device_us = self_cuda_us(table)
     log(f"profile {label}: wall {wall:.4f} s under the profiler, device "
         f"busy {device_us / 1e6:.4f} s = {100 * device_us / 1e6 / wall:.1f}% "
         f"on {card}")
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)
-    for e in top[:12]:
-        if e.self_device_time_total <= 0:
-            break
+    # The 12 largest, then the port's own kernels (namespace sampt) below.
+    shown = [e for e in top[:12] if e.self_device_time_total > 0]
+    shown += [e for e in top[12:] if "sampt::" in e.key
+              and e.self_device_time_total > 0]
+    for e in shown:
         log(f"  device {e.self_device_time_total / 1e3:10.3f} ms "
             f"{100 * e.self_device_time_total / device_us:5.1f}% "
             f"x{e.count:<6d} {e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(f"chiprun_out/profile_{label}.txt", "w") as f:
         f.write(table)
+
+
+# JSON row -> (source, the TPU function it replaces)
+KERNEL_SOURCES = {
+    "window": ("sam_pt_torch/csrc/window_attention.cu",
+               "sam_pt_tpu/ops/flash_attention.py:542"),
+    "global": ("sam_pt_torch/csrc/global_attention.cu",
+               "sam_pt_tpu/ops/flash_attention.py:219"),
+    "cross": ("sam_pt_torch/csrc/cross_attention.cu",
+              "sam_pt_tpu/ops/flash_attention.py:381"),
+    "relpos": ("sam_pt_torch/csrc/relpos_attention.cu",
+               "sam_pt_tpu/ops/flash_attention.py:87"),
+}
+
+
+def kernel_json(report: dict, launches: dict, route_launches: dict) -> list:
+    """The kernel line's rows: per kernel its launches on the main path
+    (K4: in the route phase), the worst error of its cases and each
+    case's `TIMES`, the second case's with a suffix."""
+    kernels = []
+    for key, (source, replaces) in KERNEL_SOURCES.items():
+        r = report[key]
+        entry = {"name": f"{key}_attention", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[key], "max_abs_err": r["max_abs_err"],
+                 **{f: r[f] for f in TIMES}}
+        # K3 token->image above and image->token (masked) here; K4 flash
+        # above and window here, launched by the route phase, not the slice.
+        second = {"cross": ("cross_masked", "_image_to_token"),
+                  "relpos": ("relpos_window", "_window")}.get(key)
+        if second:
+            m = report[second[0]]
+            entry["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
+            entry.update({f + second[1]: m[f] for f in TIMES})
+        # Image->token without the mask: its error counts, its times are
+        # only logged.
+        if key == "cross":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       report["cross_unmasked"]["max_abs_err"])
+        if key == "relpos":
+            entry["launches"] = route_launches["relpos"]
+        kernels.append(entry)
+    return kernels
 
 
 def main() -> int:
@@ -725,7 +848,7 @@ def main() -> int:
 
     build_phase()
     device = torch.device("cuda")
-    report = kernel_phase(fa, device)
+    report = kernel_phase(fa, device, profiling)
 
     from sam_pt_torch.build import build_sam_pt
     from sam_pt_torch.vos_eval.eval import device_fuse_index_masks
@@ -772,35 +895,8 @@ def main() -> int:
     route_launches = route_phase(fa, device)
     reinit_phase(fa, device, device_fuse_index_masks, card, profiling)
 
-    meta = {
-        "window": ("sam_pt_torch/csrc/window_attention.cu",
-                   "sam_pt_tpu/ops/flash_attention.py:542"),
-        "global": ("sam_pt_torch/csrc/global_attention.cu",
-                   "sam_pt_tpu/ops/flash_attention.py:219"),
-        "cross": ("sam_pt_torch/csrc/cross_attention.cu",
-                  "sam_pt_tpu/ops/flash_attention.py:381"),
-        "relpos": ("sam_pt_torch/csrc/relpos_attention.cu",
-                   "sam_pt_tpu/ops/flash_attention.py:87"),
-    }
-    kernels = []
-    for key, (source, replaces) in meta.items():
-        r = report[key]
-        entry = {"name": f"{key}_attention", "route": "cuda",
-                 "source": source, "replaces": replaces,
-                 "launches": launches[key], "max_abs_err": r["max_abs_err"],
-                 **{f: r[f] for f in TIMES}}
-        # K3 token->image above and image->token (masked) here; K4 flash
-        # above and window here, launched by the route phase, not the slice.
-        second = {"cross": ("cross_masked", "_image_to_token"),
-                  "relpos": ("relpos_window", "_window")}.get(key)
-        if second:
-            m = report[second[0]]
-            entry["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
-            entry.update({f + second[1]: m[f] for f in TIMES})
-        if key == "relpos":
-            entry["launches"] = route_launches["relpos"]
-        kernels.append(entry)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernel_json(report, launches,
+                                           route_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

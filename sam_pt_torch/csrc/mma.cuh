@@ -1,5 +1,5 @@
 // Warp-level tensor-core primitives shared by the port's attention kernels
-// (K3 token -> image in cross_attention.cu, the window body in
+// (both K3 kernels in cross_attention.cu, the window body in
 // relpos_kernels.cu): inline PTX for ldmatrix and mma.sync m16n8k16 (bf16
 // in, f32 accumulate), and the softmax helpers that work in log2 units.
 //
@@ -63,6 +63,14 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Round two floats to bfloat16 precision with one packed conversion
+// (cvt.rn.bf16x2.f32): half the conversions of two round_bf16 calls.
+__device__ __forceinline__ void round_bf16_pair(float& lo, float& hi) {
+  const uint32_t u = pack_bf16(lo, hi);
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
 }
 
 // Merge the running (max, sum) (m2, l2) into (m, l), maxima in log2

@@ -40,6 +40,7 @@ _SIGNATURES = {
                              _P],
     "sam_window_blocks_per_sm": [_I, _I, _I],
     "sam_flash_blocks_per_sm": [_I, _I, _I],
+    "sam_cross_i2t_blocks_per_sm": [_I, _I, _I],
 }
 
 

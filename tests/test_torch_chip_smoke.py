@@ -1,8 +1,9 @@
 """The kernel phase's arithmetic in `chip_smoke.py`, on the CPU: the
 roofline bound of each kernel case against counts made by hand from the
-main path's shapes, and the library yardsticks (one
+main path's shapes, the library yardsticks (one
 `scaled_dot_product_attention` call each) against the plain version of the
-kernel they stand beside, in float32 at small shapes.
+kernel they stand beside, in float32 at small shapes, and the kernel JSON
+line's rows.
 
 Tolerance of the yardsticks: 1e-5 absolute and relative. Both sides compute
 the same softmax attention in float32 (the plain versions' bf16 roundings
@@ -119,8 +120,48 @@ def _case(name, rng):
 
 
 @pytest.mark.parametrize("name", ["window", "global", "cross",
-                                  "cross_masked", "relpos"])
+                                  "cross_masked", "cross_unmasked", "relpos"])
 def test_library_yardstick_computes_the_kernels_function(name):
     ref, got = _case(name, np.random.default_rng(0))
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
+
+
+# kernel_phase's report: case -> the numbers of `chip_smoke.TIMES`.
+CASES = ("window", "global", "cross", "cross_masked", "cross_unmasked",
+         "relpos", "relpos_window")
+SECOND_CASE = {"cross": ("cross_masked", "_image_to_token"),
+               "relpos": ("relpos_window", "_window")}
+# Cases whose error counts in a row without their times.
+CHECKED_CASE = {"cross": "cross_unmasked"}
+
+
+def _report():
+    return {name: {"max_abs_err": 1e-3 * (i + 1), "bound_by": "bytes",
+                   **{f: 10.0 * i + j for j, f in enumerate(chip_smoke.TIMES)
+                      if f != "bound_by"}}
+            for i, name in enumerate(CASES)}
+
+
+@pytest.mark.parametrize("key", list(chip_smoke.KERNEL_SOURCES))
+def test_kernel_json_rows_carry_both_timers(key):
+    """Every row has the contract's keys and both timers of each of its
+    cases (`loop_ms`, `library_loop_ms` beside `ms`, `library_ms`), taken
+    from the right case; K4's launches are the route phase's."""
+    report = _report()
+    launches = {"window": 420, "global": 60, "cross": 280, "relpos": 0}
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        report, launches, {"relpos": 1})}
+    row = rows[f"{key}_attention"]
+    assert {"name", "route", "source", "replaces", "launches",
+            "max_abs_err"} <= set(row)
+    assert {"loop_ms", "library_loop_ms"} <= set(chip_smoke.TIMES)
+    cases = [(key, "")] + ([SECOND_CASE[key]] if key in SECOND_CASE else [])
+    for case, suffix in cases:
+        for f in chip_smoke.TIMES:
+            assert row[f + suffix] == report[case][f]
+    checked = [c for c, _ in cases] + (
+        [CHECKED_CASE[key]] if key in CHECKED_CASE else [])
+    assert row["max_abs_err"] == max(report[c]["max_abs_err"]
+                                     for c in checked)
+    assert row["launches"] == (1 if key == "relpos" else launches[key])

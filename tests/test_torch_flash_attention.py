@@ -119,6 +119,33 @@ class TestPlainVersusJax:
             atol=2 ** -9, rtol=2 ** -7)
 
 
+    def test_cross_k3_bf16_image_to_token_masked(self):
+        """Image -> token in bf16 with a key mask, pair 1's keys all
+        masked: the plain K3 (which the kernel is held to on the card)
+        follows the TPU kernel's rounding points to one bf16 ulp of the
+        O(0.1) outputs, and pair 1's p is uniform over its keys, so all
+        its rows are equal."""
+        rng = _rng()
+        b, nq, nk, heads, dh = 2, 1024, 23, 4, 16
+        arrs = [(rng.standard_normal((b, n, heads * dh)) * 0.5).astype(
+            np.float32) for n in (nq, nk, nk)]
+        valid = rng.random((b, nk)) > 0.3
+        valid[0, 0] = True
+        valid[1] = False
+        ref = jfa.fused_cross_attention(
+            *[jnp.asarray(a, jnp.bfloat16) for a in arrs], heads=heads,
+            divisor=dh ** 0.5, kv_valid=jnp.asarray(valid))
+        got = fa.cross_attention(
+            *[torch.from_numpy(a).to(torch.bfloat16) for a in arrs],
+            heads=heads, divisor=dh ** 0.5, kv_valid=torch.from_numpy(valid))
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, np.asarray(ref, np.float32),
+                                   atol=2 ** -9, rtol=2 ** -7)
+        np.testing.assert_array_equal(got[1], np.broadcast_to(got[1, :1],
+                                                              got[1].shape))
+
+
 class TestRelposK4PlainVersusJax:
     @pytest.mark.parametrize("b,kh,kw", [
         (2, 32, 32),   # N = 1024: the q-tiled regime, square grid

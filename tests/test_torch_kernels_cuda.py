@@ -1,6 +1,6 @@
 """The port's CUDA kernels K1/K2/K3/K4 against their plain PyTorch versions
 on the card, in bfloat16 at the main path's shapes (ViT-H windows and global
-blocks, 48 decoder pairs, K3 token -> image also at ragged shapes; K4 at
+blocks, 48 decoder pairs, both K3 directions also at ragged shapes; K4 at
 ViT-H global width and over ViT-H windows; the window body also at head
 dims 64 and 128 and over small, rectangular and ragged windows; the flash
 body also at ViT-B/L widths, on ragged grids and at head dims 16 and
@@ -24,6 +24,8 @@ from sam_pt_torch.ops import flash_attention as fa
 ATOL, RTOL = 1e-2, 2 ** -6
 
 # K3 cases: name -> (nq, nk, key mask, divisor); 48 pairs, 8 heads x 16.
+# The key mask: False (none), True (random, key 0 valid) or "pair" (random,
+# and every key of pair 0 masked: its p is uniform over its nk keys).
 K3_CASES = {
     "token_to_image": (60, 4096, False, 4.0),
     "image_to_token": (4096, 60, True, 4.0),
@@ -31,6 +33,14 @@ K3_CASES = {
     "token_to_image_divisor_3": (60, 4096, False, 3.0),
     **{f"token_to_image_nq{nq}_nk{nk}": (nq, nk, False, 4.0)
        for nq in (1, 17, 64, 65, 130) for nk in (4096, 4000)},
+    "image_to_token_unmasked": (4096, 60, False, 4.0),
+    "image_to_token_divisor_3": (4096, 60, True, 3.0),
+    "image_to_token_unmasked_divisor_3": (4096, 60, False, 3.0),
+    # 65 and 130 keys take the token -> image kernel's two passes
+    **{f"image_to_token_nk{nk}": (4096, nk, True, 4.0)
+       for nk in (1, 5, 17, 64, 65, 130)},
+    **{f"image_to_token_nq{nq}": (nq, 60, True, 4.0) for nq in (4000, 4097)},
+    "image_to_token_all_masked_pair": (4096, 60, "pair", 4.0),
 }
 
 
@@ -81,6 +91,15 @@ class TestKernelsOnCard:
 
         assert library().sam_flash_blocks_per_sm(64, 64, 80) == 1
 
+    def test_cross_image_to_token_four_blocks_per_sm(self, gen):
+        """At SAM's 8 heads x 16 K3 image->token's 34 KB of shared memory
+        a block and at most 64 registers a thread leave room for four
+        blocks on an SM, with and without the key mask."""
+        from sam_pt_torch.ops._cuda import library
+
+        for masked in (True, False):
+            assert library().sam_cross_i2t_blocks_per_sm(8, masked, True) == 4
+
     def test_global_k2(self, gen):
         qkv = _randn(gen, 1, 4096, 3 * 16 * 80)
         rh, rw = _randn(gen, 64, 64, 80, std=0.2), _randn(gen, 64, 64, 80,
@@ -108,9 +127,10 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("case", list(K3_CASES))
     def test_cross_k3(self, gen, case):
         """k and v distinct (a kernel that swapped them would fail), both
-        directions at the decoder's shapes, token -> image over ragged
-        query and key counts, with a key mask and with a divisor that is
-        no power of two."""
+        directions at the decoder's shapes, over ragged query and key
+        counts (image -> token also past one 64-key tile), with and
+        without a key mask (image -> token also with a pair whose keys are
+        all masked) and with a divisor that is no power of two."""
         nq, nk, masked, divisor = K3_CASES[case]
         q = _randn(gen, 48, nq, 128)
         k, v = _randn(gen, 48, nk, 128), _randn(gen, 48, nk, 128)
@@ -119,6 +139,8 @@ class TestKernelsOnCard:
         if masked:
             valid = torch.rand((48, nk), generator=gen, device="cuda") > 0.3
             valid[:, 0] = True
+            if masked == "pair":
+                valid[0] = False
         got = fa.cross_attention_cuda(
             q, k, v, kv_valid=None if valid is None else valid.to(
                 torch.uint8), **kw)

@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero before the verdict line:
   3. Kernel phase: the window and flash bodies' resident blocks per SM at
      ViT-H's shapes and K3 image->token's at the decoder's 8 heads, then
      K1/K2/K3 against their plain PyTorch versions at the main path's
-     shapes in bf16 (seeded inputs), K4 in both its regimes
+     shapes in bf16 (seeded inputs), K1/K2 also at ViT-B's (12 heads x
+     64), K4 in both its regimes
      (ViT-H global width, 64 x 4096 x 80; ViT-H windows, 1600 x 196 x 80),
      max abs error against a stated tolerance, and CUDA-event times
      (single calls, median of 5 runs) of the kernel, its plain version and
@@ -42,6 +43,16 @@ Phases, in order; any failure exits non-zero before the verdict line:
      on frames 0 and 12 (so the flipped pass runs): output checks, the
      horizon windows per direction, launches equal to one encode and to
      the decode chunks of the windows, and a timed second pass.
+  9. Default-model phase: `configs/model/sam_pt.yaml` (SAM ViT-B bf16 +
+     PIPS f32, decode chunk 32, the same two output biases set) over a
+     DAVIS-shaped 24-frame x 2-object video: launches equal to the
+     schedule, output checks, a timed second pass, and the reference
+     check of phase 5 at ViT-B; with --profile its stage split.
+ 10. Tracker phase: PIPS++ (512 x 896) and RAFT (32 iterations) tracking
+     17 points through a 24-frame 480 x 854 video (finite, pinned at the
+     query frames, timed second pass); then PIPS, PIPS++ and RAFT on an
+     8-frame 96 x 160 video, the card's float32 run against the CPU's on
+     the same weights, TF32 off.
 Then one JSON line with the per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. The kernel phase alone:
 
@@ -248,27 +259,29 @@ def kernel_cases(fa, device) -> dict:
         return (std * torch.randn(shape, generator=g, device=device)
                 ).to(torch.bfloat16)
 
-    def window():  # K1: 25 windows x 4 frames, 196 tokens, 16 heads x 80
-        qkv = randn(100, 196, 3 * 16 * 80)
-        rh, rw = randn(14, 14, 80, std=0.2), randn(14, 14, 80, std=0.2)
-        bias = fa.window_bias(qkv, rh, rw, 16)
-        kw = dict(scale=80 ** -0.5, heads=16)
+    # K1: 25 windows x 4 frames, 196 tokens; K2: 4 frames of 64 x 64
+    # tokens. ViT-H: 16 heads x 80; ViT-B (the default model): 12 x 64.
+    def window(heads=16, d=80):
+        qkv = randn(100, 196, 3 * heads * d)
+        rh, rw = randn(14, 14, d, std=0.2), randn(14, 14, d, std=0.2)
+        bias = fa.window_bias(qkv, rh, rw, heads)
+        kw = dict(scale=d ** -0.5, heads=heads)
         return (lambda: fa.window_attention_cuda(qkv, bias, **kw),
                 lambda: fa.window_attention_plain(qkv, bias, **kw),
                 library_fused_qkv(qkv, bias, kh=14, **kw),
-                (qkv, bias), (100 * 16, 196, 196, 80))
+                (qkv, bias), (100 * heads, 196, 196, d))
 
-    def global_():  # K2: 4 frames of 64 x 64 tokens, 16 heads x 80
-        qkv = randn(4, 4096, 3 * 16 * 80)
-        rh, rw = randn(64, 64, 80, std=0.2), randn(64, 64, 80, std=0.2)
-        bias = fa.global_bias(qkv, rh, rw, 16, 64, 64)
-        kw = dict(scale=80 ** -0.5, heads=16)
+    def global_(heads=16, d=80):
+        qkv = randn(4, 4096, 3 * heads * d)
+        rh, rw = randn(64, 64, d, std=0.2), randn(64, 64, d, std=0.2)
+        bias = fa.global_bias(qkv, rh, rw, heads, 64, 64)
+        kw = dict(scale=d ** -0.5, heads=heads)
         return (lambda: fa.global_attention_cuda(qkv, bias, kh=64, kw=64,
                                                  **kw),
                 lambda: fa.global_attention_plain(qkv, bias, kh=64, kw=64,
                                                   **kw),
                 library_fused_qkv(qkv, bias, kh=64, **kw),
-                (qkv, bias), (4 * 16, 4096, 4096, 80))
+                (qkv, bias), (4 * heads, 4096, 4096, d))
 
     # K3: 48 pairs, 8 heads x 16; 60 prompt + output tokens, 4096 image
     # tokens. Token -> image unmasked, with k and v distinct as in the
@@ -314,7 +327,9 @@ def kernel_cases(fa, device) -> dict:
             "cross_masked": cross_masked,
             "cross_unmasked": lambda: cross_masked(False),
             "relpos": lambda: relpos(64, 64, 64),
-            "relpos_window": lambda: relpos(1600, 14, 14)}
+            "relpos_window": lambda: relpos(1600, 14, 14),
+            "window_vit_b": lambda: window(12, 64),
+            "global_vit_b": lambda: global_(12, 64)}
 
 
 def build_phase() -> None:
@@ -424,14 +439,19 @@ def make_video(n_frames: int, n_masks: int, seed: int,
 
 def launch_schedule(sam_pt, encodes, decodes) -> dict:
     """Kernel launches of encode calls over `encodes` frames each and
-    decode calls over `decodes` pairs each: K1 28 and K2 4 per encode
-    chunk, K3 5 per decoder pass and decode chunk, no K4."""
+    decode calls over `decodes` pairs each: per encode chunk one K1 a
+    window block and one K2 a global block of the model's ViT (ViT-H: 28
+    and 4, ViT-B: 8 and 4), K3 5 per decoder pass and decode chunk, no
+    K4."""
     ec, dc = sam_pt.sam_encode_chunk, sam_pt.sam_decode_chunk
+    encoder = sam_pt.sam_predictor.model.image_encoder
+    n_global = len(encoder.global_attn_indexes)
+    n_window = len(encoder.blocks) - n_global
     enc = sum(-(-t // ec) for t in encodes)
     dec = sum(-(-n // min(dc, n)) for n in decodes)
     passes = 2 + sam_pt.iterative_refinement_iterations
-    return {"window": 28 * enc, "global": 4 * enc, "cross": 5 * passes * dec,
-            "relpos": 0}
+    return {"window": n_window * enc, "global": n_global * enc,
+            "cross": 5 * passes * dec, "relpos": 0}
 
 
 def bias_for_a_live_run(sam_pt) -> None:
@@ -505,7 +525,7 @@ def check_outputs(out, masks, n_frames, n_masks, n_points, query_ts=None):
             f"visibilities {sorted(found)}")
 
 
-def reference_phase(sam_pt, fa, video) -> None:
+def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
     """Encode chunk and decode chunk with kernels vs with plain versions."""
     predictor = sam_pt.sam_predictor
     device = sam_pt.device
@@ -533,7 +553,7 @@ def reference_phase(sam_pt, fa, video) -> None:
         for name, fn in saved.items():
             setattr(fa, name, fn)
     e = rel(emb_k, emb_p)
-    log(f"reference: encoder embeddings kernels vs plain rel_l2 {e:.3e}")
+    log(f"{label}: encoder embeddings kernels vs plain rel_l2 {e:.3e}")
 
     rng = np.random.default_rng(3)
     b = 8
@@ -552,7 +572,7 @@ def reference_phase(sam_pt, fa, video) -> None:
             setattr(fa, name, fn)
     d_iou = float((iou_k - iou_p).abs().max())
     agree = float(((up_k > 0) == (up_p > 0)).float().mean())
-    log(f"reference: decode chain kernels vs plain: iou max diff {d_iou:.3e}, "
+    log(f"{label}: decode chain kernels vs plain: iou max diff {d_iou:.3e}, "
         f"mask agreement {agree:.5f}, logits rel_l2 {rel(up_k, up_p):.3e}")
     if not (e < 5e-2 and d_iou < 5e-2 and agree > 0.99):
         raise SystemExit("kernel path disagrees with the plain path")
@@ -652,36 +672,208 @@ def reinit_phase(fa, device, fuse, card: str, profiling: bool) -> None:
     wall = time.perf_counter() - t0
     log(f"reinit: timed pass {wall:.3f} s for {t} frames = {t / wall:.3f} "
         f"frames/s, {len(sam_pt.reinit_windows)} windows, on {card}")
-    if profiling:  # serialized split by stage, then the profiler
-        stages = {}
-
-        def timed(name, fn):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
-                return out
-            return run
-
-        names = ("_encode_all_frames", "_track_points", "_apply_sam",
-                 "extract_query_points")
-        for name in names:
-            setattr(sam_pt, name, timed(name, getattr(sam_pt, name)))
-        t0 = time.perf_counter()
-        run_video(sam_pt, video, fuse)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        for name in names:
-            delattr(sam_pt, name)
-        log(f"profile reinit_{t}x{m}: serialized {total:.4f} s: " + ", ".join(
-            f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in stages.items())
-            + f", rest {total - sum(stages.values()):.4f}")
-        device_profile(f"reinit_{t}x{m}",
-                       lambda: run_video(sam_pt, video, fuse), card)
+    if profiling:
+        stage_split(sam_pt, f"reinit_{t}x{m}", ("_encode_all_frames",
+                    "_track_points", "_apply_sam", "extract_query_points"),
+                    lambda: run_video(sam_pt, video, fuse), card)
     del sam_pt
     torch.cuda.empty_cache()
+
+
+def stage_split(sam_pt, label: str, names, run, card: str) -> None:
+    """One `run()` with the SamPt methods `names` timed on the host clock,
+    each call between two synchronisations (serialized), then one
+    `run()` under the profiler."""
+    stages = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for name in names:
+        setattr(sam_pt, name, timed(name, getattr(sam_pt, name)))
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name in names:
+            delattr(sam_pt, name)
+    log(f"profile {label}: serialized {total:.4f} s: " + ", ".join(
+        f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in stages.items())
+        + f", rest {total - sum(stages.values()):.4f}")
+    device_profile(label, run, card)
+
+
+def default_model_phase(fa, device, fuse, card: str,
+                        profiling: bool) -> dict:
+    """The repo's default model (configs/model/sam_pt.yaml: SAM ViT-B in
+    bf16 + PIPS in f32) at full width over a DAVIS-shaped 24-frame x
+    2-object video, query masks on frame 0: launches equal to the
+    schedule, output checks, a timed second pass, kernels against plain
+    versions through ViT-B's encoder and the decode chain. Returns the
+    launches."""
+    from sam_pt_torch.build import DEFAULT_SETTINGS, build_sam_pt
+
+    t0 = time.perf_counter()
+    sam_pt = build_sam_pt(device, dtype=torch.bfloat16, seed=0, sam="vit_b",
+                          tracker="pips", **DEFAULT_SETTINGS)
+    bias_for_a_live_run(sam_pt)
+    torch.cuda.synchronize()
+    log(f"default model: built SamPt (ViT-B bf16 + PIPS f32, random) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t, m = 24, 2
+    video = make_video(t, m, seed=8)
+    n_points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
+
+    fa.reset_launch_counts()
+    out, masks = run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    expected = launch_schedule(sam_pt, [t], [t * m])
+    log(f"default model: launches {launches} expected {expected}")
+    if launches != expected or not all(
+            launches[k] for k in ("window", "global", "cross")):
+        raise SystemExit("default model: launch counts differ")
+    log(f"default model: video {t} frames x {m} objects: "
+        + check_outputs(out, masks, t, m, n_points))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"default model: timed pass {wall:.3f} s for {t} frames = "
+        f"{t / wall:.3f} frames/s on {card}")
+    reference_phase(sam_pt, fa, video, label="default model reference")
+    if profiling:
+        stage_split(sam_pt, f"default_{t}x{m}", (
+            "_encode_all_frames", "extract_query_points",
+            "_track_points_device", "_apply_sam_device"),
+            lambda: run_video(sam_pt, video, fuse), card)
+    del sam_pt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The card's float32 tracker run against the CPU's, TF32 off: the two differ
+# in summation order only. The bound is about 1% of how far the points move
+# (0.6-1.7 px on the 8-frame video, with the heads scaled as below).
+TRACKER_CPU_ATOL = 1e-2
+
+
+def small_steps_(name: str, model) -> None:
+    """Scale a random tracker's update heads down for the card-vs-CPU
+    comparison, so that float32 summation-order differences stay small:
+    PIPS's flow-embedding input columns (frequencies up to ~970 a pixel)
+    and visibility bias, PIPS++'s delta head, RAFT's flow head (at
+    N(0, 0.02^2) these move points by 60-120 px in 8 frames, and a change
+    in the last bit of the input by up to 50 px)."""
+    with torch.no_grad():
+        if name == "pips":
+            model.delta_block.to_delta[0].weight[:, 324:516] *= 0.01
+            model.vis_predictor[0].bias.fill_(3.0)
+        elif name == "pips_plus_plus":
+            model.delta_block.dense.weight.mul_(0.01)
+            model.delta_block.dense.bias.mul_(0.01)
+        else:
+            model.update_block.flow_head.conv2.weight.mul_(0.01)
+            model.update_block.flow_head.conv2.bias.mul_(0.01)
+
+
+def tracker_phase(device, card: str) -> None:
+    """PIPS++ (512 x 896, as configured) and RAFT (32 iterations), random
+    f32 weights, each tracking 17 points through a 24-frame 480 x 854
+    video (query frames 0, 8 and 23) on the card: finite trajectories,
+    pinned at the query frames; a warm pass, then a timed one. Then PIPS,
+    PIPS++ and RAFT on an 8-frame 96 x 160 video (query frames 0 and 7,
+    PIPS++ at the video's size), the card's run against the same weights'
+    run on the CPU, TF32 off."""
+    from sam_pt_torch.build import TRACKER_SETTINGS
+    from sam_pt_torch.models.tracker import TRACKER_REGISTRY
+
+    rng = np.random.default_rng(9)
+    n_points = 17
+
+    def queries(frames, h, w):
+        ts = np.asarray(frames)[np.arange(n_points) % len(frames)]
+        xy = rng.uniform([8, 8], [w - 8, h - 8], (n_points, 2))
+        return np.concatenate([ts[:, None], xy], 1)[None].astype(np.float32)
+
+    t = 24
+    video = torch.from_numpy(rng.integers(0, 255, (1, t, H, W, 3)).astype(
+        np.uint8)).to(device)
+    qp = queries([0, 8, 23], H, W)
+    rows = np.arange(n_points)
+    for name in ("pips_plus_plus", "raft"):
+        tracker = TRACKER_REGISTRY[name](allow_random_init=True, seed=1,
+                                         device=device,
+                                         **TRACKER_SETTINGS[name])
+        traj, vis = tracker.forward_device(video, qp)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj, vis = tracker.forward_device(video, qp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traj = traj[0].cpu().numpy()
+        pin = float(np.abs(traj[qp[0, :, 0].astype(int), rows]
+                           - qp[0, :, 1:]).max())
+        ok = (traj.shape == (t, n_points, 2) and np.isfinite(traj).all()
+              and pin <= 1e-3 and tuple(vis.shape) == (1, t, n_points))
+        log(f"tracker {name}: {t} frames {H} x {W}, {n_points} points: "
+            f"timed pass {wall:.3f} s = {t / wall:.3f} frames/s on {card}; "
+            f"finite, query-frame error {pin:.2e} px (<= 1e-3), moved up "
+            f"to {float(np.abs(traj - qp[0, None, :, 1:]).max()):.1f} px, "
+            f"visible {float(vis.mean()):.3f} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"tracker {name}: bad trajectories")
+        del tracker
+        torch.cuda.empty_cache()
+
+    small = torch.from_numpy(rng.integers(0, 255, (1, 8, 96, 160, 3)).astype(
+        np.uint8))
+    qp = queries([0, 7], 96, 160)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name in ("pips", "pips_plus_plus", "raft"):
+            kwargs = dict(TRACKER_SETTINGS[name])
+            if name == "pips_plus_plus":
+                kwargs["image_size"] = (96, 160)
+            runs = []
+            for dev, video_on in ((device, small.to(device)), ("cpu", small)):
+                tracker = TRACKER_REGISTRY[name](
+                    allow_random_init=True, seed=1, device=dev, **kwargs)
+                if runs:  # the card's weights, on the CPU
+                    tracker.model.load_state_dict(weights)
+                else:
+                    small_steps_(name, tracker.model)
+                    weights = {k: v.cpu() for k, v in
+                               tracker.model.state_dict().items()}
+                runs.append(tracker.forward_device(video_on, qp)[0].cpu())
+            err = float((runs[0] - runs[1]).abs().max())
+            moved = float((runs[1][0] - torch.from_numpy(qp[0, :, 1:])
+                           ).abs().max())
+            ok = (bool(torch.isfinite(runs[0]).all())
+                  and err <= TRACKER_CPU_ATOL)
+            log(f"tracker {name} card vs CPU (8 x 96 x 160, f32, TF32 off): "
+                f"max |diff| {err:.3e} px (<= {TRACKER_CPU_ATOL:g}), points "
+                f"moved up to {moved:.3f} px {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"tracker {name}: the card disagrees with "
+                                 f"the CPU")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
 
 
 def query_points_phase(sam_pt, fa, fuse) -> None:
@@ -788,10 +980,16 @@ KERNEL_SOURCES = {
 }
 
 
-def kernel_json(report: dict, launches: dict, route_launches: dict) -> list:
+# Rows of K1 and K2 at ViT-B's shapes, launched by the default model.
+VIT_B_ROWS = ("window", "global")
+
+
+def kernel_json(report: dict, launches: dict, route_launches: dict,
+                default_launches: dict) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
-    case's `TIMES`, the second case's with a suffix."""
+    case's `TIMES`, the second case's with a suffix; then K1 and K2 at
+    ViT-B's shapes (`_vit_b`) with the default model's launches."""
     kernels = []
     for key, (source, replaces) in KERNEL_SOURCES.items():
         r = report[key]
@@ -815,6 +1013,14 @@ def kernel_json(report: dict, launches: dict, route_launches: dict) -> list:
         if key == "relpos":
             entry["launches"] = route_launches["relpos"]
         kernels.append(entry)
+    for key in VIT_B_ROWS:
+        source, replaces = KERNEL_SOURCES[key]
+        r = report[f"{key}_vit_b"]
+        kernels.append({"name": f"{key}_attention_vit_b", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": default_launches[key],
+                        "max_abs_err": r["max_abs_err"],
+                        **{f: r[f] for f in TIMES}})
     return kernels
 
 
@@ -894,9 +1100,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     route_launches = route_phase(fa, device)
     reinit_phase(fa, device, device_fuse_index_masks, card, profiling)
+    default_launches = default_model_phase(fa, device,
+                                           device_fuse_index_masks, card,
+                                           profiling)
+    tracker_phase(device, card)
 
-    log(json.dumps({"kernels": kernel_json(report, launches,
-                                           route_launches)}))
+    log(json.dumps({"kernels": kernel_json(report, launches, route_launches,
+                                           default_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

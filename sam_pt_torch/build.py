@@ -1,26 +1,37 @@
-"""Factory for the port's main path (what `bench.py::build_pipeline` builds
-for the JAX package): SAM ViT-H + CoTracker (stride 4, window 8, interp
-384 x 512, 6 iterations, support grid 2 every 12 frames) under `SamPt`
-with the reference's default point configuration. With
-`**REINIT_SETTINGS` it builds the point re-initialisation configuration of
-`configs/model/sam_pt_reinit.yaml` (`model=sam_pt_reinit`, for long
-videos) at the same widths.
+"""Factory for the port's SamPt configurations at full width, on random
+weights.
 
-Weights are random, drawn from an explicit generator: every parameter and
-buffer ~ N(0, 0.02^2), in the working dtype, on an explicit device.
+With its defaults, `build_sam_pt` builds the main path (what
+`bench.py::build_pipeline` builds for the JAX package): SAM ViT-H +
+CoTracker (stride 4, window 8, interp 384 x 512, 6 iterations, support grid
+2 every 12 frames) under `SamPt` with the reference's default point
+configuration. `sam=` picks the SAM variant (`vit_b`, `vit_l`, `vit_h`) and
+`tracker=` the point tracker (`cotracker`, `pips`, `pips_plus_plus`,
+`raft`, each as its `configs/model/point_tracker/*.yaml` sets it). The
+repo's default model, `configs/model/sam_pt.yaml`, is
+`build_sam_pt(device, sam="vit_b", tracker="pips", **DEFAULT_SETTINGS)`;
+with `**REINIT_SETTINGS` it builds the point re-initialisation
+configuration of `configs/model/sam_pt_reinit.yaml` (`model=sam_pt_reinit`,
+for long videos).
+
+Weights are random: SAM's (and CoTracker's, after SAM's) are drawn from one
+generator on the device seeded with `seed`, every parameter and buffer
+~ N(0, 0.02^2) in the working dtype; PIPS, PIPS++ and RAFT are built in
+float32 by their own constructors, seeded with `seed + 1`.
 """
 from __future__ import annotations
 
 from typing import Union
 
 import torch
-from torch import nn
 
 from .models.sam.predictor import SamPredictor
 from .models.sam.sam_model import Sam
 from .models.sam_pt import SamPt
+from .models.tracker import TRACKER_REGISTRY
 from .models.tracker.cotracker.model import CoTracker
 from .models.tracker.cotracker.tracker import CoTrackerPointTracker
+from .utils.checkpoint import randomize_
 
 SAM_PT_SETTINGS = dict(
     sam_iou_threshold=0.7,
@@ -33,6 +44,9 @@ SAM_PT_SETTINGS = dict(
     sam_decode_chunk=48,
     sam_encode_chunk=4,
 )
+# configs/model/sam_pt.yaml: the main path's settings otherwise.
+DEFAULT_SETTINGS = dict(sam_decode_chunk=32, point_tracker_mask_batch_size=5,
+                        sam_encode_chunk=4)
 # configs/model/sam_pt_reinit.yaml: the main path's settings otherwise.
 REINIT_SETTINGS = dict(
     use_point_reinit=True,
@@ -40,40 +54,39 @@ REINIT_SETTINGS = dict(
     reinit_horizon=24,
     reinit_variant="reinit-at-median-of-area-diff",
 )
-
-
-@torch.no_grad()
-def randomize_(module: nn.Module, generator: torch.Generator,
-               std: float = 0.02) -> nn.Module:
-    """Fill every parameter and persistent buffer with N(0, std^2) draws."""
-    for tensor in list(module.parameters()) + [
-            b for name, b in module.named_buffers()
-            if name in module.state_dict()]:
-        values = torch.randn(tensor.shape, generator=generator,
-                             device=generator.device, dtype=torch.float32)
-        tensor.copy_(values * std)
-    return module
+# configs/model/point_tracker/*.yaml, checkpoints aside.
+TRACKER_SETTINGS = {
+    "pips": dict(stride=4, s=8, initial_next_frame_visibility_threshold=0.9),
+    "pips_plus_plus": dict(stride=8, max_sequence_length=128, iters=16,
+                           image_size=(512, 896)),
+    "raft": dict(iters=32),
+}
 
 
 def build_sam_pt(device: Union[str, torch.device],
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 sam: str = "vit_h", tracker: str = "cotracker",
                  **settings) -> SamPt:
-    """The main-path SamPt on `device` in `dtype`, with random weights
-    drawn from a generator on `device` seeded with `seed`; `settings`
-    override SAM_PT_SETTINGS (REINIT_SETTINGS for the reinit
-    configuration)."""
+    """SamPt with SAM `sam` in `dtype` and the point tracker `tracker` on
+    `device`, random weights from `seed`; `settings` override
+    SAM_PT_SETTINGS (DEFAULT_SETTINGS for the repo's default model,
+    REINIT_SETTINGS for the reinit configuration)."""
     device = torch.device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 
-    sam = Sam("vit_h")
-    tracker_model = CoTracker(s=8, stride=4)
-    for model in (sam, tracker_model):
-        randomize_(model.to(device), generator)
-        model.to(dtype).eval().requires_grad_(False)
-
-    tracker = CoTrackerPointTracker(
-        tracker_model, interp_shape=(384, 512), support_grid_size=2,
-        support_grid_every_n_frames=12, iters=6)
-    return SamPt(point_tracker=tracker, sam_predictor=SamPredictor(sam),
+    sam_model = randomize_(Sam(sam).to(device), generator)
+    sam_model.to(dtype).eval().requires_grad_(False)
+    if tracker == "cotracker":
+        model = randomize_(CoTracker(s=8, stride=4).to(device), generator)
+        point_tracker = CoTrackerPointTracker(
+            model.to(dtype).eval().requires_grad_(False),
+            interp_shape=(384, 512), support_grid_size=2,
+            support_grid_every_n_frames=12, iters=6)
+    else:
+        point_tracker = TRACKER_REGISTRY[tracker](
+            allow_random_init=True, seed=seed + 1, device=device,
+            **TRACKER_SETTINGS[tracker])
+    return SamPt(point_tracker=point_tracker,
+                 sam_predictor=SamPredictor(sam_model),
                  **dict(SAM_PT_SETTINGS, **settings))

@@ -1,0 +1,38 @@
+"""A SAM predictor from a model configuration's keys
+(counterpart of `sam_pt_tpu/models/sam/factory.py`; the keys of
+`configs/model/sam/*.yaml`), plus the device it runs on."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ...utils.checkpoint import load_or_randomize_
+from .image_encoder import VIT_VARIANTS
+from .predictor import SamPredictor
+from .sam_model import Sam
+
+DTYPES = {"float32": torch.float32, "f32": torch.float32,
+          "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def build_predictor(variant: str = "vit_b", checkpoint: Optional[str] = None,
+                    dtype: str = "bfloat16", image_size: int = 1024,
+                    allow_random_init: bool = False, hq: bool = False,
+                    hq_token_only: bool = False, seed: int = 0,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> SamPredictor:
+    """A SamPredictor for a ViT variant (`vit_b`, `vit_l`, `vit_h`) in
+    `dtype` on `device`: the public `segment_anything` checkpoint loaded as
+    it is, or, where the file is missing and `allow_random_init` is set,
+    N(0, 0.02^2) weights from a generator on `device` seeded with `seed`.
+    A missing file raises FileNotFoundError otherwise."""
+    if hq or hq_token_only:
+        raise NotImplementedError("the HQ-SAM decoder is not ported yet")
+    if variant not in VIT_VARIANTS:
+        raise NotImplementedError(
+            f"SAM variant {variant!r} is not ported (TinyViT is not yet)")
+    model = Sam(variant, image_size=image_size)
+    load_or_randomize_(model, checkpoint, allow_random_init=allow_random_init,
+                       seed=seed, device=device)
+    return SamPredictor(model.to(DTYPES[dtype]).eval().requires_grad_(False))

@@ -14,10 +14,12 @@
 from __future__ import annotations
 
 import abc
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ...ops.resize import resize_bilinear
 
 
 class PointTracker(abc.ABC):
@@ -33,3 +35,24 @@ class PointTracker(abc.ABC):
 
     def __call__(self, rgbs, query_points):
         return self.forward(rgbs, query_points)
+
+
+def encode_in_chunks(encode: Callable[[torch.Tensor], torch.Tensor],
+                     video: torch.Tensor, chunk: int,
+                     target_hw: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
+    """`encode` over a [T, H, W, 3] video in chunks of `chunk` frames (the
+    last padded with its final frame, so every call has one shape), each
+    chunk cast to float32 and resized to `target_hw` where that differs.
+    Returns the encodings of the T frames, concatenated."""
+    out = []
+    for i in range(0, video.shape[0], chunk):
+        frames = video[i:i + chunk]
+        pad = chunk - frames.shape[0]
+        if pad:
+            frames = torch.cat([frames, frames[-1:].expand(pad, -1, -1, -1)])
+        x = frames.float()
+        if target_hw is not None and tuple(target_hw) != tuple(x.shape[1:3]):
+            x = resize_bilinear(x, target_hw)
+        out.append(encode(x)[:chunk - pad])
+    return torch.cat(out)

@@ -13,9 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ....ops.resize import resize_bilinear
 from ....ops.sampling import bilinear_sample
-from ..api import PointTracker
+from ..api import PointTracker, encode_in_chunks
 from .model import CoTracker
 
 
@@ -48,23 +47,6 @@ class CoTrackerPointTracker(PointTracker):
         self.s = model.s
         self.stride = model.stride
         self._fmap_cache = None
-
-    def _encode_video(self, video: torch.Tensor, target_hw) -> torch.Tensor:
-        """[T, H, W, 3] uint8 -> fmaps [T, h/stride, w/stride, C], in chunks
-        of `encode_chunk` frames (the last padded with its final frame)."""
-        t = video.shape[0]
-        ec = self.encode_chunk
-        out = []
-        for i in range(0, t, ec):
-            chunk = video[i:i + ec]
-            pad = ec - chunk.shape[0]
-            if pad:
-                chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1, -1)])
-            x = chunk.float()
-            if tuple(target_hw) != tuple(x.shape[1:3]):
-                x = resize_bilinear(x, target_hw)
-            out.append(self.model.encode_frames(x)[:ec - pad])
-        return torch.cat(out, dim=0)
 
     def _track(self, fmaps: torch.Tensor, queries: torch.Tensor, t: int):
         """CoTracker v1 windowed forward over all tracks.
@@ -154,7 +136,8 @@ class CoTrackerPointTracker(PointTracker):
         if cache is not None and cache[0] is rgbs and cache[1] == (ih, iw):
             fmaps = cache[2]
         else:
-            fmaps = self._encode_video(video, (ih, iw))
+            fmaps = encode_in_chunks(self.model.encode_frames, video,
+                                     self.encode_chunk, (ih, iw))
             self._fmap_cache = (rgbs, (ih, iw), fmaps)
 
         q_f = torch.as_tensor(queries, device=device)

@@ -55,6 +55,27 @@ def get_3d_sincos_embedding(xyz: torch.Tensor, num_channels: int,
     return pe
 
 
+def posemb_sincos_2d_xy(xy: torch.Tensor, num_channels: int,
+                        temperature: float = 10000.0,
+                        cat_coords: bool = False) -> torch.Tensor:
+    """PIPS++ embedding of [B, S, 2] coords: omega_k = 1 / T^(k / (C/4 - 1))
+    for k < C/4, blocks [sin(x w), cos(x w), sin(y w), cos(y w)], with the
+    raw (x, y) APPENDED when `cat_coords`."""
+    c = num_channels
+    if c % 4:
+        raise ValueError("the feature dimension must be a multiple of 4")
+    omega = torch.arange(c // 4, dtype=torch.float32,
+                         device=xy.device) / (c // 4 - 1)
+    omega = 1.0 / (temperature ** omega)
+    x = xy[..., 0:1] * omega
+    y = xy[..., 1:2] * omega
+    pe = torch.cat([torch.sin(x), torch.cos(x), torch.sin(y), torch.cos(y)],
+                   dim=-1)
+    if cat_coords:
+        pe = torch.cat([pe, xy], dim=-1)
+    return pe
+
+
 def sincos_pos_embed_2d_grid(embed_dim: int, grid_hw,
                              device=None) -> torch.Tensor:
     """MAE-style 2D sincos table [H, W, embed_dim]: first half of the

@@ -2,7 +2,8 @@
 `sam_pt_tpu/ops/sampling.py`).
 
 `bilinear_sample` gathers the four integer taps around each point and
-blends them, with the JAX package's `clamp` and `zeros` padding modes.
+blends them, with the JAX package's `clamp` and `zeros` padding modes;
+`bilinear_sample_nchw` is its clamped form on channels-first maps.
 `separable_neighborhood_sample` samples a regular (dy, dx) grid around
 centres as two small products against bilinear "hat" weight matrices,
 exactly as the JAX package does (grid_sample zero padding, align_corners
@@ -53,6 +54,34 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
             + tap(iy0, ix1) * (wy0 * wx1)[..., None]
             + tap(iy1, ix0) * (wy1 * wx0)[..., None]
             + tap(iy1, ix1) * (wy1 * wx1)[..., None])
+
+
+def bilinear_sample_nchw(img: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor) -> torch.Tensor:
+    """Sample img [B, C, H, W] at pixel coords x, y [B, N] -> [B, C, N]
+    f32, taps clamped to the border (the reference's `bilinear_sample2d`)."""
+    b, c, h, w = img.shape
+    x = x.float()
+    y = y.float()
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx1 = x - x0
+    wy1 = y - y0
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+    ix0 = x0.long().clamp(0, w - 1)
+    ix1 = (x0.long() + 1).clamp(0, w - 1)
+    iy0 = y0.long().clamp(0, h - 1)
+    iy1 = (y0.long() + 1).clamp(0, h - 1)
+    flat = img.float().reshape(b, c, h * w)
+
+    def tap(iy, ix):
+        return torch.gather(flat, 2, (iy * w + ix)[:, None].expand(-1, c, -1))
+
+    return (tap(iy0, ix0) * (wy0 * wx0)[:, None]
+            + tap(iy0, ix1) * (wy0 * wx1)[:, None]
+            + tap(iy1, ix0) * (wy1 * wx0)[:, None]
+            + tap(iy1, ix1) * (wy1 * wx1)[:, None])
 
 
 def _hat_weights(coords: torch.Tensor, size: int,

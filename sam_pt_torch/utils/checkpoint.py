@@ -1,26 +1,33 @@
-"""Carry weights from the JAX package's parameter trees to the port.
+"""Weights for the port: public checkpoints, random weights, and the JAX
+package's parameter trees.
 
 The port's modules use the public checkpoint names (`segment_anything` for
-SAM, CoTracker v1 for the tracker), so a real checkpoint loads into them
-with `load_state_dict` as it is. The SAM and CoTracker functions are the
-inverses of
-`convert_sam_state_dict` and `convert_cotracker_state_dict` in
-`sam_pt_tpu/utils/checkpoint.py`: they take a JAX parameter tree (nested
-dicts of arrays, with or without the top-level "params") and return the
-port's float32 state dict.
+SAM, CoTracker v1, PIPS, PIPS++ and RAFT for the trackers), so a public
+checkpoint loads into them as it is (`load_or_randomize_`). The
+`*_state_dict_from_jax` functions are the inverses of the JAX package's
+converters (`convert_sam_state_dict`, `convert_cotracker_state_dict`,
+`convert_pips_state_dict`, `convert_pips2_state_dict`,
+`convert_raft_state_dict` in `sam_pt_tpu/utils/checkpoint.py`): they take a
+JAX parameter tree (nested dicts of arrays, with or without the top-level
+"params") and return the port's float32 state dict.
 
-Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv kernel
-[kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]; the JAX package's
-ConvTranspose kernel is stored spatially flipped, [kh, kw, in, out] ->
-ConvTranspose2d weight [in, out, kh, kw] un-flipped.
+Layouts: Dense kernel [in, out] -> Linear weight [out, in] (and Conv1d
+weight [out, in, 1]); Conv kernel [kh, kw, in, out] -> Conv2d weight
+[out, in, kh, kw]; 1-D Conv kernel [k, in, out] -> Conv1d weight
+[out, in, k]; the JAX package's ConvTranspose kernel is stored spatially
+flipped, [kh, kw, in, out] -> ConvTranspose2d weight [in, out, kh, kw]
+un-flipped.
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict
+import warnings
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _np(x) -> np.ndarray:
@@ -33,6 +40,78 @@ def _t(x) -> torch.Tensor:
 
 def _root(params: Dict[str, Any]) -> Dict[str, Any]:
     return params["params"] if "params" in params else params
+
+
+@torch.no_grad()
+def randomize_(module: nn.Module, generator: torch.Generator,
+               std: float = 0.02) -> nn.Module:
+    """Fill every parameter and persistent buffer with N(0, std^2) draws."""
+    for tensor in list(module.parameters()) + [
+            b for name, b in module.named_buffers()
+            if name in module.state_dict()]:
+        values = torch.randn(tensor.shape, generator=generator,
+                             device=generator.device, dtype=torch.float32)
+        tensor.copy_(values * std)
+    return module
+
+
+def resolve_pips_checkpoint_file(path: str) -> str:
+    """A PIPS-style checkpoint directory holds `model-<step>.pth` files:
+    the highest step wins. A file is returned as it is."""
+    if os.path.isfile(path):
+        return path
+    files = [f for f in os.listdir(path) if f.endswith(".pth")]
+    if not files:
+        raise FileNotFoundError(f"no .pth file under {path}")
+
+    def step(name):
+        found = re.search(r"(\d+)", name)
+        return int(found.group(1)) if found else -1
+
+    return os.path.join(path, sorted(files, key=step)[-1])
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A public .pth as its state dict: tensors only (`weights_only`), the
+    PIPS saver's `model_state_dict` or a `model` entry unwrapped, and the
+    DataParallel `module.` prefixes removed."""
+    sd = torch.load(resolve_pips_checkpoint_file(path), map_location="cpu",
+                    weights_only=True)
+    for key in ("model_state_dict", "model"):
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def load_or_randomize_(model: nn.Module, checkpoint_path: Optional[str], *,
+                       allow_random_init: bool, seed: int,
+                       device: Union[str, torch.device]) -> bool:
+    """Move `model` to `device` and give it weights: the public checkpoint
+    at `checkpoint_path` (a file, or a PIPS step directory) loaded as it
+    is, or, where there is none and `allow_random_init` is set,
+    N(0, 0.02^2) draws from a generator on `device` seeded with `seed`.
+    Every parameter and buffer must be in the checkpoint; keys the model
+    does not have (BatchNorm's step counters) are ignored. Returns whether
+    a checkpoint was loaded."""
+    device = torch.device(device)
+    model.to(device)
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        sd = load_torch_state_dict(checkpoint_path)
+        keys = set(model.state_dict())
+        if keys - set(sd):
+            raise KeyError(f"{checkpoint_path} lacks "
+                           f"{sorted(keys - set(sd))[:8]}")
+        model.load_state_dict({k: v for k, v in sd.items() if k in keys})
+        return True
+    if not allow_random_init:
+        raise FileNotFoundError(
+            f"checkpoint not found: {checkpoint_path} (set "
+            f"allow_random_init=True to run on random weights)")
+    if checkpoint_path is not None:
+        warnings.warn(f"checkpoint {checkpoint_path!r} not found: random "
+                      f"weights")
+    randomize_(model, torch.Generator(device=device).manual_seed(seed))
+    return False
 
 
 def _strip_head_pad(qkv_w, qkv_b, proj_w, rel_h, rel_w, head_dim: int):
@@ -80,6 +159,25 @@ def attention_state_dict_from_jax(attn: Dict[str, Any], head_dim: int,
     }
 
 
+def _lin(sd, dst, node):
+    sd[f"{dst}.weight"] = _t(_np(node["kernel"]).T)
+    sd[f"{dst}.bias"] = _t(node["bias"])
+
+
+def _conv(sd, dst, node):
+    """A 2-D (kernel [kh, kw, in, out]) or 1-D ([k, in, out]) conv."""
+    k = _np(node["kernel"])
+    sd[f"{dst}.weight"] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4
+                             else k.transpose(2, 1, 0))
+    if "bias" in node:
+        sd[f"{dst}.bias"] = _t(node["bias"])
+
+
+def _norm(sd, dst, node, scale="scale"):
+    sd[f"{dst}.weight"] = _t(node[scale])
+    sd[f"{dst}.bias"] = _t(node["bias"])
+
+
 def vit_encoder_state_dict_from_jax(enc: Dict[str, Any],
                                     prefix: str = "image_encoder."
                                     ) -> Dict[str, torch.Tensor]:
@@ -87,13 +185,7 @@ def vit_encoder_state_dict_from_jax(enc: Dict[str, Any],
     dim is the smallest rel-pos width over the blocks (window blocks are
     never padded)."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def conv(dst, node, bias=True):
-        sd[f"{prefix}{dst}.weight"] = _t(_np(node["kernel"]).transpose(3, 2, 0, 1))
-        if bias:
-            sd[f"{prefix}{dst}.bias"] = _t(node["bias"])
-
-    conv("patch_embed.proj", enc["patch_embed"])
+    _conv(sd, f"{prefix}patch_embed.proj", enc["patch_embed"])
     if "pos_embed" in enc:
         sd[f"{prefix}pos_embed"] = _t(enc["pos_embed"])
     depth = 1 + max(int(m.group(1)) for k in enc
@@ -103,20 +195,16 @@ def vit_encoder_state_dict_from_jax(enc: Dict[str, Any],
     for i in range(depth):
         blk = enc[f"blocks_{i}"]
         dst = f"{prefix}blocks.{i}"
-        sd[f"{dst}.norm1.weight"] = _t(blk["norm1"]["scale"])
-        sd[f"{dst}.norm1.bias"] = _t(blk["norm1"]["bias"])
+        _norm(sd, f"{dst}.norm1", blk["norm1"])
         sd.update(attention_state_dict_from_jax(blk["attn"], head_dim,
                                                 prefix=f"{dst}.attn."))
-        sd[f"{dst}.norm2.weight"] = _t(blk["norm2"]["scale"])
-        sd[f"{dst}.norm2.bias"] = _t(blk["norm2"]["bias"])
+        _norm(sd, f"{dst}.norm2", blk["norm2"])
         for name in ("lin1", "lin2"):
-            sd[f"{dst}.mlp.{name}.weight"] = _t(_np(blk[f"mlp_{name}"]["kernel"]).T)
-            sd[f"{dst}.mlp.{name}.bias"] = _t(blk[f"mlp_{name}"]["bias"])
-    conv("neck.0", enc["neck_conv1"], bias=False)
-    conv("neck.2", enc["neck_conv2"], bias=False)
+            _lin(sd, f"{dst}.mlp.{name}", blk[f"mlp_{name}"])
+    _conv(sd, f"{prefix}neck.0", enc["neck_conv1"])
+    _conv(sd, f"{prefix}neck.2", enc["neck_conv2"])
     for j, name in ((1, "neck_ln1"), (3, "neck_ln2")):
-        sd[f"{prefix}neck.{j}.weight"] = _t(enc[name]["weight"])
-        sd[f"{prefix}neck.{j}.bias"] = _t(enc[name]["bias"])
+        _norm(sd, f"{prefix}neck.{j}", enc[name], "weight")
     return sd
 
 
@@ -127,21 +215,9 @@ def sam_state_dict_from_jax(params: Dict[str, Any]
     p = _root(params)
     sd = vit_encoder_state_dict_from_jax(p["image_encoder"])
 
-    def lin(dst, node):
-        sd[f"{dst}.weight"] = _t(_np(node["kernel"]).T)
-        sd[f"{dst}.bias"] = _t(node["bias"])
-
-    def conv(dst, node):
-        sd[f"{dst}.weight"] = _t(_np(node["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{dst}.bias"] = _t(node["bias"])
-
     def convt(dst, node):
         k = _np(node["kernel"])[::-1, ::-1]
         sd[f"{dst}.weight"] = _t(k.transpose(2, 3, 0, 1))
-        sd[f"{dst}.bias"] = _t(node["bias"])
-
-    def norm(dst, node, scale="scale"):
-        sd[f"{dst}.weight"] = _t(node[scale])
         sd[f"{dst}.bias"] = _t(node["bias"])
 
     pe = p["prompt_encoder"]
@@ -154,11 +230,11 @@ def sam_state_dict_from_jax(params: Dict[str, Any]
         pe["not_a_point_embed"])[None]
     sd["prompt_encoder.no_mask_embed.weight"] = _t(pe["no_mask_embed"])[None]
     md = "prompt_encoder.mask_downscaling"
-    conv(f"{md}.0", pe["mask_conv1"])
-    norm(f"{md}.1", pe["mask_ln1"], "weight")
-    conv(f"{md}.3", pe["mask_conv2"])
-    norm(f"{md}.4", pe["mask_ln2"], "weight")
-    conv(f"{md}.6", pe["mask_conv3"])
+    _conv(sd, f"{md}.0", pe["mask_conv1"])
+    _norm(sd, f"{md}.1", pe["mask_ln1"], "weight")
+    _conv(sd, f"{md}.3", pe["mask_conv2"])
+    _norm(sd, f"{md}.4", pe["mask_ln2"], "weight")
+    _conv(sd, f"{md}.6", pe["mask_conv3"])
 
     dec = p["mask_decoder"]
     tr = dec["transformer"]
@@ -169,29 +245,140 @@ def sam_state_dict_from_jax(params: Dict[str, Any]
         for a in ("self_attn", "cross_attn_token_to_image",
                   "cross_attn_image_to_token"):
             for name in attns:
-                lin(f"{dst}.{a}.{name}", src[a][name])
+                _lin(sd, f"{dst}.{a}.{name}", src[a][name])
         for j in range(1, 5):
-            norm(f"{dst}.norm{j}", src[f"norm{j}"])
-        lin(f"{dst}.mlp.lin1", src["mlp"]["lin1"])
-        lin(f"{dst}.mlp.lin2", src["mlp"]["lin2"])
+            _norm(sd, f"{dst}.norm{j}", src[f"norm{j}"])
+        _lin(sd, f"{dst}.mlp.lin1", src["mlp"]["lin1"])
+        _lin(sd, f"{dst}.mlp.lin2", src["mlp"]["lin2"])
     for name in attns:
-        lin(f"mask_decoder.transformer.final_attn_token_to_image.{name}",
-            tr["final_attn_token_to_image"][name])
-    norm("mask_decoder.transformer.norm_final_attn", tr["norm_final_attn"])
+        _lin(sd, f"mask_decoder.transformer.final_attn_token_to_image."
+             f"{name}", tr["final_attn_token_to_image"][name])
+    _norm(sd, "mask_decoder.transformer.norm_final_attn",
+          tr["norm_final_attn"])
     sd["mask_decoder.iou_token.weight"] = _t(dec["iou_token"])
     sd["mask_decoder.mask_tokens.weight"] = _t(dec["mask_tokens"])
     convt("mask_decoder.output_upscaling.0", dec["upscale_conv1"])
-    norm("mask_decoder.output_upscaling.1", dec["upscale_ln"], "weight")
+    _norm(sd, "mask_decoder.output_upscaling.1", dec["upscale_ln"], "weight")
     convt("mask_decoder.output_upscaling.3", dec["upscale_conv2"])
     n_hyper = 1 + max(int(m.group(1)) for k in dec
                       if (m := re.match(r"output_hypernetworks_mlps_(\d+)$", k)))
     for i in range(n_hyper):
         for j in range(3):
-            lin(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}",
-                dec[f"output_hypernetworks_mlps_{i}"][f"layers_{j}"])
+            _lin(sd, f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}",
+                 dec[f"output_hypernetworks_mlps_{i}"][f"layers_{j}"])
     for j in range(3):
-        lin(f"mask_decoder.iou_prediction_head.layers.{j}",
-            dec["iou_prediction_head"][f"layers_{j}"])
+        _lin(sd, f"mask_decoder.iou_prediction_head.layers.{j}",
+             dec["iou_prediction_head"][f"layers_{j}"])
+    return sd
+
+
+def _basic_encoder_from_jax(fnet: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The PIPS-family BasicEncoder (`fnet.*`) of CoTracker, PIPS and
+    PIPS++."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "fnet.conv1", fnet["conv1"])
+    for li in (1, 2, 3, 4):
+        for bi in range(2):
+            blk = fnet[f"layer{li}_{bi}"]
+            _conv(sd, f"fnet.layer{li}.{bi}.conv1", blk["conv1"])
+            _conv(sd, f"fnet.layer{li}.{bi}.conv2", blk["conv2"])
+            if "downsample" in blk:
+                _conv(sd, f"fnet.layer{li}.{bi}.downsample.0",
+                      blk["downsample"])
+    _conv(sd, "fnet.conv2", fnet["conv2"])
+    _conv(sd, "fnet.conv3", fnet["conv3"])
+    return sd
+
+
+def _count(tree: Dict[str, Any], prefix: str) -> int:
+    return sum(1 for k in tree if re.fullmatch(rf"{prefix}\d+", k))
+
+
+def pips_state_dict_from_jax(params: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX `Pips` parameter tree -> the port's (= the public PIPS
+    reference_model's) state dict."""
+    p = _root(params)
+    sd = _basic_encoder_from_jax(p["fnet"])
+    db = p["delta_block"]
+    depth = _count(db, "mixer_")
+    td = "delta_block.to_delta"
+    _lin(sd, f"{td}.0", db["input_proj"])
+    for i in range(depth):
+        m, dst = db[f"mixer_{i}"], f"{td}.{1 + i}"
+        _norm(sd, f"{dst}.0.norm", m["token_norm"])
+        for j, name in ((0, "token_fc1"), (3, "token_fc2")):
+            _lin(sd, f"{dst}.0.fn.{j}", m[name])
+            sd[f"{dst}.0.fn.{j}.weight"] = sd[f"{dst}.0.fn.{j}.weight"][
+                ..., None]  # a kernel-1 Conv1d
+        _norm(sd, f"{dst}.1.norm", m["chan_norm"])
+        _lin(sd, f"{dst}.1.fn.0", m["chan_fc1"])
+        _lin(sd, f"{dst}.1.fn.3", m["chan_fc2"])
+    _norm(sd, f"{td}.{depth + 1}", db["out_norm"])
+    _lin(sd, f"{td}.{depth + 3}", db["out_proj"])
+    _norm(sd, "norm", p["ffeat_norm"])
+    _lin(sd, "ffeat_updater.0", p["ffeat_updater"])
+    _lin(sd, "vis_predictor.0", p["vis_predictor"])
+    return sd
+
+
+def pips2_state_dict_from_jax(params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX `PipsPlusPlus` parameter tree -> the port's (= the public PIPS++
+    reference_model's) state dict."""
+    p = _root(params)
+    sd = _basic_encoder_from_jax(p["fnet"])
+    db = p["delta_block"]
+    _conv(sd, "delta_block.first_block_conv.conv", db["first_block_conv"])
+    for i in range(_count(db, "block_")):
+        for name in ("conv1", "conv2"):
+            _conv(sd, f"delta_block.basicblock_list.{i}.{name}.conv",
+                  db[f"block_{i}"][name])
+    _lin(sd, "delta_block.dense", db["dense"])
+    return sd
+
+
+def raft_state_dict_from_jax(params: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX `Raft` parameter tree -> the port's (= raft-things.pth's) state
+    dict. A strided block's BatchNorm is both `norm3` and `downsample.1`,
+    as in the original module."""
+    p = _root(params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(dst, node):
+        _norm(sd, dst, node)
+        sd[f"{dst}.running_mean"] = _t(node["mean"])
+        sd[f"{dst}.running_var"] = _t(node["var"])
+
+    for net in ("fnet", "cnet"):
+        enc = p[net]
+        _conv(sd, f"{net}.conv1", enc["conv1"])
+        if "norm1" in enc:
+            bn(f"{net}.norm1", enc["norm1"])
+        for li in (1, 2, 3):
+            for bi in range(2):
+                blk, dst = enc[f"layer{li}_{bi}"], f"{net}.layer{li}.{bi}"
+                _conv(sd, f"{dst}.conv1", blk["conv1"])
+                _conv(sd, f"{dst}.conv2", blk["conv2"])
+                for name in ("norm1", "norm2", "norm3"):
+                    if name in blk:
+                        bn(f"{dst}.{name}", blk[name])
+                if "downsample" in blk:
+                    _conv(sd, f"{dst}.downsample.0", blk["downsample"])
+                    if "norm3" in blk:
+                        bn(f"{dst}.downsample.1", blk["norm3"])
+        _conv(sd, f"{net}.conv2", enc["conv2"])
+    ub = p["update_block"]
+    for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
+        _conv(sd, f"update_block.encoder.{name}", ub["encoder"][name])
+    for name in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2"):
+        _conv(sd, f"update_block.gru.{name}", ub["gru"][name])
+    _conv(sd, "update_block.flow_head.conv1", ub["flow_head_conv1"])
+    _conv(sd, "update_block.flow_head.conv2", ub["flow_head_conv2"])
+    _conv(sd, "update_block.mask.0", ub["mask_conv1"])
+    _conv(sd, "update_block.mask.2", ub["mask_conv2"])
     return sd
 
 
@@ -200,43 +387,21 @@ def cotracker_state_dict_from_jax(params: Dict[str, Any]
     """JAX `CoTracker` parameter tree -> the port's (= CoTracker v1's)
     state dict, without the checkpoint's "model." prefix."""
     p = _root(params)
-    sd: Dict[str, torch.Tensor] = {}
-
-    def lin(dst, node):
-        sd[f"{dst}.weight"] = _t(_np(node["kernel"]).T)
-        sd[f"{dst}.bias"] = _t(node["bias"])
-
-    def conv(dst, node):
-        sd[f"{dst}.weight"] = _t(_np(node["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{dst}.bias"] = _t(node["bias"])
-
-    fnet = p["fnet"]
-    conv("fnet.conv1", fnet["conv1"])
-    for li in (1, 2, 3, 4):
-        for bi in range(2):
-            blk = fnet[f"layer{li}_{bi}"]
-            conv(f"fnet.layer{li}.{bi}.conv1", blk["conv1"])
-            conv(f"fnet.layer{li}.{bi}.conv2", blk["conv2"])
-            if "downsample" in blk:
-                conv(f"fnet.layer{li}.{bi}.downsample.0", blk["downsample"])
-    conv("fnet.conv2", fnet["conv2"])
-    conv("fnet.conv3", fnet["conv3"])
-
+    sd = _basic_encoder_from_jax(p["fnet"])
     uf = p["updateformer"]
-    lin("updateformer.input_transform", uf["input_transform"])
-    lin("updateformer.flow_head", uf["flow_head"])
+    _lin(sd, "updateformer.input_transform", uf["input_transform"])
+    _lin(sd, "updateformer.flow_head", uf["flow_head"])
     for kind in ("time_blocks", "space_blocks"):
         i = 0
         while f"{kind}_{i}" in uf:
             src = uf[f"{kind}_{i}"]
             dst = f"updateformer.{kind}.{i}"
-            lin(f"{dst}.attn.qkv", src["attn"]["qkv"])
-            lin(f"{dst}.attn.proj", src["attn"]["proj"])
-            lin(f"{dst}.mlp.fc1", src["mlp_fc1"])
-            lin(f"{dst}.mlp.fc2", src["mlp_fc2"])
+            _lin(sd, f"{dst}.attn.qkv", src["attn"]["qkv"])
+            _lin(sd, f"{dst}.attn.proj", src["attn"]["proj"])
+            _lin(sd, f"{dst}.mlp.fc1", src["mlp_fc1"])
+            _lin(sd, f"{dst}.mlp.fc2", src["mlp_fc2"])
             i += 1
-    sd["norm.weight"] = _t(p["ffeat_norm"]["scale"])
-    sd["norm.bias"] = _t(p["ffeat_norm"]["bias"])
-    lin("ffeat_updater.0", p["ffeat_updater"])
-    lin("vis_predictor.0", p["vis_predictor"])
+    _norm(sd, "norm", p["ffeat_norm"])
+    _lin(sd, "ffeat_updater.0", p["ffeat_updater"])
+    _lin(sd, "vis_predictor.0", p["vis_predictor"])
     return sd

@@ -80,6 +80,27 @@ class TestAttentionRoundTrip:
             "a.rel_pos_h": w[3], "a.rel_pos_w": w[4]})
 
 
+    def test_vit_b_global_block(self):
+        """ViT-B's global block, 12 heads x 64 over a 64 x 64 grid: the JAX
+        converter pads each head 64 -> 128 lanes (rel-pos tables 128
+        wide); the port strips the pad at head dim 64."""
+        rng = np.random.default_rng(8)
+        c, heads = 768, 12
+        w = [rng.standard_normal(s).astype(np.float32) for s in
+             ((c, 3 * c), (3 * c,), (c, c), (127, 64), (127, 64))]
+        stored = _pad_attn_heads(*w, num_heads=heads)
+        assert stored[0].shape == (c, 3 * heads * 128)
+        assert stored[3].shape == (127, 128)
+        proj_b = rng.standard_normal(c).astype(np.float32)
+        params = {"qkv": {"kernel": stored[0], "bias": stored[1]},
+                  "proj": {"kernel": stored[2], "bias": proj_b},
+                  "rel_pos_h": stored[3], "rel_pos_w": stored[4]}
+        _assert_same(attention_state_dict_from_jax(params, 64), {
+            "qkv.weight": w[0].T, "qkv.bias": w[1],
+            "proj.weight": w[2].T, "proj.bias": proj_b,
+            "rel_pos_h": w[3], "rel_pos_w": w[4]})
+
+
 class TestCoTrackerRoundTrip:
     @pytest.mark.parametrize("cfg", ["tiny", "published"])
     def test_round_trip(self, cfg):

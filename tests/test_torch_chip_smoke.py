@@ -44,6 +44,13 @@ ROWS = {
                  _bytes(*[(64, 4096, 80)] * 3, *[(64, 4096, 64)] * 2,
                         (64, 4096, 80)),
                  343.6, 234.9, 0.347, "operations"),
+    "K1 ViT-B": ((100 * 12, 196, 196, 64),
+                 _bytes((100, 196, 2304), (100, 196, 12, 28),
+                        (100, 196, 768)),
+                 11.80, 133.6, 0.0399, "bytes"),
+    "K2 ViT-B": ((4 * 12, 4096, 4096, 64),
+                 _bytes((4, 4096, 2304), (4, 4096, 12, 128), (4, 4096, 768)),
+                 206.16, 151.0, 0.2084, "operations"),
     "K4 window": ((1600, 196, 196, 80),
                   _bytes(*[(1600, 196, 80)] * 3, *[(1600, 196, 14)] * 2,
                          (1600, 196, 80)),
@@ -129,7 +136,7 @@ def test_library_yardstick_computes_the_kernels_function(name):
 
 # kernel_phase's report: case -> the numbers of `chip_smoke.TIMES`.
 CASES = ("window", "global", "cross", "cross_masked", "cross_unmasked",
-         "relpos", "relpos_window")
+         "relpos", "relpos_window", "window_vit_b", "global_vit_b")
 SECOND_CASE = {"cross": ("cross_masked", "_image_to_token"),
                "relpos": ("relpos_window", "_window")}
 # Cases whose error counts in a row without their times.
@@ -151,7 +158,7 @@ def test_kernel_json_rows_carry_both_timers(key):
     report = _report()
     launches = {"window": 420, "global": 60, "cross": 280, "relpos": 0}
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
-        report, launches, {"relpos": 1})}
+        report, launches, {"relpos": 1}, {"window": 48, "global": 24})}
     row = rows[f"{key}_attention"]
     assert {"name", "route", "source", "replaces", "launches",
             "max_abs_err"} <= set(row)
@@ -165,3 +172,41 @@ def test_kernel_json_rows_carry_both_timers(key):
     assert row["max_abs_err"] == max(report[c]["max_abs_err"]
                                      for c in checked)
     assert row["launches"] == (1 if key == "relpos" else launches[key])
+
+
+@pytest.mark.parametrize("key", chip_smoke.VIT_B_ROWS)
+def test_kernel_json_vit_b_rows(key):
+    """K1 and K2 at ViT-B's shapes are rows of their own, with the
+    default model's launches and every key of the contract."""
+    report = _report()
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
+        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140})}
+    row = rows[f"{key}_attention_vit_b"]
+    assert row["launches"] == {"window": 48, "global": 24}[key]
+    assert (row["source"], row["replaces"]) == chip_smoke.KERNEL_SOURCES[key]
+    assert row["max_abs_err"] == report[f"{key}_vit_b"]["max_abs_err"]
+    for f in chip_smoke.TIMES:
+        assert row[f] == report[f"{key}_vit_b"][f]
+
+
+@pytest.mark.parametrize("variant,window,global_", [("vit_b", 8, 4),
+                                                    ("vit_h", 28, 4)])
+def test_launch_schedule_reads_the_model(variant, window, global_):
+    """Per encode chunk one K1 a window block and one K2 a global block;
+    K3 5 per decoder pass and decode chunk."""
+    from types import SimpleNamespace
+
+    from sam_pt_torch.models.sam.image_encoder import VIT_VARIANTS
+
+    cfg = VIT_VARIANTS[variant]
+    encoder = SimpleNamespace(blocks=[None] * cfg["depth"],
+                              global_attn_indexes=cfg["global_attn_indexes"])
+    sam_pt = SimpleNamespace(
+        sam_encode_chunk=4, sam_decode_chunk=32,
+        iterative_refinement_iterations=12,
+        sam_predictor=SimpleNamespace(model=SimpleNamespace(
+            image_encoder=encoder)))
+    got = chip_smoke.launch_schedule(sam_pt, [24], [48])
+    assert got == {"window": 6 * window, "global": 6 * global_,
+                   "cross": 5 * 14 * 2, "relpos": 0}

@@ -20,8 +20,15 @@ SLICE_MODULES = [
     "sam_pt_torch.models.sam.mask_decoder",
     "sam_pt_torch.models.sam.sam_model",
     "sam_pt_torch.models.sam.predictor",
+    "sam_pt_torch.models.sam.factory",
+    "sam_pt_torch.models.tracker",
     "sam_pt_torch.models.tracker.api",
     "sam_pt_torch.models.tracker.pips.model",
+    "sam_pt_torch.models.tracker.pips.tracker",
+    "sam_pt_torch.models.tracker.pips2.model",
+    "sam_pt_torch.models.tracker.pips2.tracker",
+    "sam_pt_torch.models.tracker.raft.model",
+    "sam_pt_torch.models.tracker.raft.tracker",
     "sam_pt_torch.models.tracker.cotracker.model",
     "sam_pt_torch.models.tracker.cotracker.tracker",
     "sam_pt_torch.models.sam_pt",

@@ -1,7 +1,8 @@
 """Shared fixtures for the port's parity tests (`test_torch_*.py`).
 
 Weights start as random state dicts in the public checkpoint namespaces
-(`segment_anything` SAM, CoTracker v1), made with numpy from a seed. The
+(`segment_anything` SAM, CoTracker v1, PIPS, PIPS++, raft-things), made
+with numpy from a seed. The
 JAX side gets them through the JAX package's own converters; the port loads
 them as they are or through `sam_pt_torch.utils.checkpoint`.
 """
@@ -111,6 +112,39 @@ def random_sam_state_dict(seed: int = 0, embed_dim: int = 32, depth: int = 2,
     return sd
 
 
+def random_like(state: Dict[str, torch.Tensor], seed: int
+                ) -> Dict[str, np.ndarray]:
+    """Random float64 numpy arrays for a module's state dict (callers
+    scale them, then cast with `as_float32`): biases and other 1-D tensors
+    N(0, 0.1^2), except norm scales and running variances
+    ~1 + N(0, 0.1^2); weights N(0, 1/fan_in). Keys the module registers
+    twice (a BatchNorm under two names) share one array."""
+    rng = np.random.default_rng(seed)
+    sd: Dict[str, np.ndarray] = {}
+    seen: Dict[int, np.ndarray] = {}
+    for key, value in state.items():
+        if value.dtype not in (torch.float32, torch.float64):
+            continue
+        if value.data_ptr() in seen:
+            sd[key] = seen[value.data_ptr()]
+            continue
+        if key.endswith(("running_var",)) or (
+                value.ndim == 1 and not key.endswith(("bias",
+                                                      "running_mean"))):
+            arr = 1.0 + 0.1 * rng.standard_normal(value.shape)
+        elif value.ndim == 1:
+            arr = rng.standard_normal(value.shape) * 0.1
+        else:
+            fan_in = int(np.prod(value.shape[1:]))
+            arr = rng.standard_normal(value.shape) * fan_in ** -0.5
+        sd[key] = seen[value.data_ptr()] = arr
+    return sd
+
+
+def as_float32(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {k: v.astype(np.float32) for k, v in sd.items()}
+
+
 def random_cotracker_state_dict(seed: int = 0, flow_head_scale: float = 1.0,
                                 **cfg) -> Dict[str, np.ndarray]:
     """A CoTracker v1 state dict (numpy float32) for the given config,
@@ -119,21 +153,62 @@ def random_cotracker_state_dict(seed: int = 0, flow_head_scale: float = 1.0,
     by small steps."""
     from sam_pt_torch.models.tracker.cotracker.model import CoTracker
 
-    rng = np.random.default_rng(seed)
-    model = CoTracker(**cfg)
-    sd = {}
-    for key, value in model.state_dict().items():
-        if key.endswith("bias"):
-            arr = rng.standard_normal(value.shape) * 0.1
-        elif value.ndim == 1:  # LayerNorm scale
-            arr = 1.0 + 0.1 * rng.standard_normal(value.shape)
-        else:
-            fan_in = int(np.prod(value.shape[1:]))
-            arr = rng.standard_normal(value.shape) * fan_in ** -0.5
-        if key.startswith("updateformer.flow_head."):
-            arr[:2] = arr[:2] * flow_head_scale
-        sd[key] = arr.astype(np.float32)
-    return sd
+    sd = random_like(CoTracker(**cfg).state_dict(), seed)
+    for key in ("updateformer.flow_head.weight",
+                "updateformer.flow_head.bias"):
+        sd[key][:2] *= flow_head_scale
+    return as_float32(sd)
+
+
+def random_pips_state_dict(seed: int = 0, delta_scale: float = 0.05,
+                           vis_bias: float = 2.0) -> Dict[str, np.ndarray]:
+    """A public-namespace PIPS state dict (numpy float32) at the published
+    widths (latent 128, mixer 512 x 12, S = 8). The coordinate outputs of
+    the delta block are scaled by `delta_scale`, so that random weights
+    move points by small steps; the visibility head's bias is `vis_bias`.
+    The input columns of the flow embedding's sines and cosines are scaled
+    by 0.01: their frequencies reach ~970 per pixel, so at full size they
+    turn a coordinate's last-bit difference into an O(1e-2) input
+    difference each refinement iteration, and float32 runs that differ in
+    summation order part after a few iterations."""
+    from sam_pt_torch.models.tracker.pips.model import Pips
+
+    model = Pips()
+    sd = random_like(model.state_dict(), seed)
+    sd["delta_block.to_delta.0.weight"][:, 324:516] *= 0.01
+    out = f"delta_block.to_delta.{len(model.delta_block.to_delta) - 1}"
+    for key in (f"{out}.weight", f"{out}.bias"):
+        rows = sd[key].reshape(8, 130, -1)
+        rows[:, :2] *= delta_scale
+    sd["vis_predictor.0.bias"][:] = vis_bias
+    return as_float32(sd)
+
+
+def random_pips2_state_dict(seed: int = 0, delta_scale: float = 0.05
+                            ) -> Dict[str, np.ndarray]:
+    """A public-namespace PIPS++ state dict (numpy float32) at the
+    published widths; the delta head is scaled by `delta_scale`, so that
+    random weights move points by small steps."""
+    from sam_pt_torch.models.tracker.pips2.model import PipsPlusPlus
+
+    sd = random_like(PipsPlusPlus().state_dict(), seed)
+    for key in ("delta_block.dense.weight", "delta_block.dense.bias"):
+        sd[key] *= delta_scale
+    return as_float32(sd)
+
+
+def random_raft_state_dict(seed: int = 0, flow_scale: float = 0.05
+                           ) -> Dict[str, np.ndarray]:
+    """A raft-things.pth-namespace state dict (numpy float32); the flow
+    head's last conv is scaled by `flow_scale`, so that random weights
+    give small flows."""
+    from sam_pt_torch.models.tracker.raft.model import Raft
+
+    sd = random_like(Raft().state_dict(), seed)
+    for key in ("update_block.flow_head.conv2.weight",
+                "update_block.flow_head.conv2.bias"):
+        sd[key] *= flow_scale
+    return as_float32(sd)
 
 
 def torch_sd(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -141,7 +216,8 @@ def torch_sd(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 # The tiny SamPt of the orchestrator parity tests: tiny SAM (`vit_tiny_test`,
-# 64-pixel input), the tiny CoTracker (one refinement iteration per window).
+# 64-pixel input), the tiny CoTracker (one refinement iteration per window)
+# or PIPS.
 TINY_SAM_PT_SETTINGS = dict(
     sam_iou_threshold=0.0,
     positive_point_selection_method="kmedoids",
@@ -158,56 +234,78 @@ TINY_TRACKER = dict(interp_shape=(32, 40), visibility_threshold=0.5,
                     iters=1)
 
 
-def tiny_sam_pt_pair(**settings) -> Tuple[object, object]:
-    """(JAX SamPt, port SamPt) on the same random weights (SAM seed 17,
-    CoTracker seed 18 with most points visible), TINY_SAM_PT_SETTINGS
-    updated by `settings`, float32."""
+def tiny_sam_pt_pair(tracker: str = "cotracker", **settings
+                     ) -> Tuple[object, object]:
+    """(JAX SamPt, port SamPt) on the same random weights, float32: the
+    tiny SAM (seed 17) and, by `tracker`, the tiny CoTracker (seed 18,
+    most points visible) or PIPS at its published widths (seed 18, stride
+    4, points visible); TINY_SAM_PT_SETTINGS updated by `settings`."""
     import sam_pt_tpu.utils.testing as jtesting
     from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
     from sam_pt_torch.models.sam.sam_model import Sam as TSam
     from sam_pt_torch.models.sam_pt import SamPt as TSamPt
-    from sam_pt_torch.models.tracker.cotracker.model import (
-        CoTracker as TCoTracker,
-    )
-    from sam_pt_torch.models.tracker.cotracker.tracker import (
-        CoTrackerPointTracker as TTracker,
-    )
-    from sam_pt_torch.utils.checkpoint import (
-        cotracker_state_dict_from_jax,
-        sam_state_dict_from_jax,
-    )
+    from sam_pt_torch.utils.checkpoint import sam_state_dict_from_jax
     from sam_pt_tpu.models.sam.predictor import SamPredictor as JPredictor
     from sam_pt_tpu.models.sam.sam_model import Sam as JSam
     from sam_pt_tpu.models.sam_pt import SamPt as JSamPt
-    from sam_pt_tpu.models.tracker.cotracker.model import (
-        CoTracker as JCoTracker,
-    )
-    from sam_pt_tpu.models.tracker.cotracker.tracker import (
-        CoTrackerPointTracker as JTracker,
-    )
-    from sam_pt_tpu.utils.checkpoint import (
-        convert_cotracker_state_dict,
-        convert_sam_state_dict,
-    )
+    from sam_pt_tpu.utils.checkpoint import convert_sam_state_dict
 
     settings = dict(TINY_SAM_PT_SETTINGS, **settings)
     sam_params = convert_sam_state_dict(random_sam_state_dict(seed=17))
-    cot_sd = random_cotracker_state_dict(seed=18, flow_head_scale=0.05,
-                                         **TINY_COTRACKER)
-    cot_sd["vis_predictor.0.bias"][:] = 2.0  # most points visible
-    cot_params = convert_cotracker_state_dict(cot_sd)
-
-    jtracker = JTracker(params=cot_params, s=4, stride=4, **TINY_TRACKER)
-    jtracker.model = JCoTracker(**TINY_COTRACKER)
+    jtracker, ttracker = (tiny_cotracker_pair() if tracker == "cotracker"
+                          else pips_pair())
     jpredictor = JPredictor(
         JSam(encoder_variant="vit_tiny_test", image_size=64), sam_params)
     jsampt = JSamPt(jtracker, jpredictor, **settings)
 
     tsam = TSam(jtesting.TINY_VIT, image_size=64)
     tsam.load_state_dict(sam_state_dict_from_jax(sam_params))
+    tsampt = TSamPt(ttracker, TPredictor(tsam.eval().requires_grad_(False)),
+                    **settings)
+    return jsampt, tsampt
+
+
+def tiny_cotracker_pair():
+    """(JAX, port) tiny CoTracker trackers on one random state dict."""
+    from sam_pt_torch.models.tracker.cotracker.model import (
+        CoTracker as TCoTracker,
+    )
+    from sam_pt_torch.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker as TTracker,
+    )
+    from sam_pt_torch.utils.checkpoint import cotracker_state_dict_from_jax
+    from sam_pt_tpu.models.tracker.cotracker.model import (
+        CoTracker as JCoTracker,
+    )
+    from sam_pt_tpu.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker as JTracker,
+    )
+    from sam_pt_tpu.utils.checkpoint import convert_cotracker_state_dict
+
+    cot_sd = random_cotracker_state_dict(seed=18, flow_head_scale=0.05,
+                                         **TINY_COTRACKER)
+    cot_sd["vis_predictor.0.bias"][:] = 2.0  # most points visible
+    cot_params = convert_cotracker_state_dict(cot_sd)
+    jtracker = JTracker(params=cot_params, s=4, stride=4, **TINY_TRACKER)
+    jtracker.model = JCoTracker(**TINY_COTRACKER)
     tcot = TCoTracker(**TINY_COTRACKER)
     tcot.load_state_dict(cotracker_state_dict_from_jax(cot_params))
-    tsampt = TSamPt(
-        TTracker(tcot.eval().requires_grad_(False), **TINY_TRACKER),
-        TPredictor(tsam.eval().requires_grad_(False)), **settings)
-    return jsampt, tsampt
+    return jtracker, TTracker(tcot.eval().requires_grad_(False),
+                              **TINY_TRACKER)
+
+
+def pips_pair():
+    """(JAX, port) PIPS trackers (stride 4) on one random public-namespace
+    state dict, the port's loaded as it is."""
+    from sam_pt_torch.models.tracker.pips.tracker import (
+        PipsPointTracker as TTracker,
+    )
+    from sam_pt_tpu.models.tracker.pips.tracker import (
+        PipsPointTracker as JTracker,
+    )
+    from sam_pt_tpu.utils.checkpoint import convert_pips_state_dict
+
+    sd = random_pips_state_dict(seed=18, vis_bias=3.0)
+    ttracker = TTracker(stride=4, allow_random_init=True, device="cpu")
+    ttracker.model.load_state_dict(torch_sd(sd))
+    return JTracker(params=convert_pips_state_dict(sd), stride=4), ttracker

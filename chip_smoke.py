@@ -53,6 +53,22 @@ Phases, in order; any failure exits non-zero before the verdict line:
      query frames, timed second pass); then PIPS, PIPS++ and RAFT on an
      8-frame 96 x 160 video, the card's float32 run against the CPU's on
      the same weights, TF32 off.
+ 11. CLI phase: a synthetic DAVIS-2017 tree (two videos of 24 random-
+     texture 480 x 854 PNG frames written by the port's codec, a palette
+     annotation a frame with two moving boxes, the second video's objects
+     labelled 2 and 5) under the gitignored `build/`; the port's
+     `sam_pt_torch/configs/vos_eval_root.yaml` composed with the tree and
+     both `allow_random_init=true`, `cfg["model"]` (the default model)
+     instantiated on the card with the two output biases set, then
+     `evaluate`: 24 PNGs a video and the zip written, J&F finite in
+     [0, 1], launches equal to the schedule, every written mask equal,
+     pixel for pixel, to the direct forward's fused and remapped masks on
+     the same frames (the model's rng reset between the two). A second,
+     timed `evaluate` (FPS, the host's time to read a video), then
+     `python -m sam_pt_torch.vos_eval.eval` as a subprocess (one video,
+     8 frames, unscored: the DAVIS scorer reads every annotated frame, as
+     the JAX one does; the device left at its default): it must exit 0 on
+     `cuda`.
 Then one JSON line with the per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. The kernel phase alone:
 
@@ -967,6 +983,200 @@ def device_profile(label: str, run, card: str) -> None:
         f.write(table)
 
 
+# The CLI phase's DAVIS-2017 tree: 24 frames a video at 480 x 854, two
+# objects each, labelled (1, 2) and (2, 5).
+CLI_FRAMES = 24
+CLI_LABELS = [(1, 2), (2, 5)]
+CLI_PALETTE = [0, 0, 0, 128, 0, 0, 0, 128, 0, 128, 128, 0, 0, 0, 128,
+               128, 0, 128]
+# The default model on random weights (the checkpoints are not in the
+# repository).
+CLI_MODEL = ("model.sam_predictor.allow_random_init=true",
+             "model.point_tracker.allow_random_init=true")
+
+
+def make_davis_tree(root: str) -> list:
+    """A DAVIS-2017 layout under `root`: per video, random-texture PNG
+    frames (8 x 8 blocks of random colour plus noise) and one palette
+    annotation a frame with two boxes moving right and down."""
+    from sam_pt_torch.vos_eval.data.image_io import write_png
+
+    rng = np.random.default_rng(11)
+    names = []
+    for v, labels in enumerate(CLI_LABELS):
+        name = f"video{v}"
+        names.append(name)
+        frames = os.path.join(root, "trainval", "JPEGImages", "480p", name)
+        annotations = os.path.join(root, "trainval", "Annotations", "480p",
+                                   name)
+        os.makedirs(frames)
+        os.makedirs(annotations)
+        texture = rng.integers(0, 255, (H // 8 + 1, W // 8 + 1, 3))
+        texture = texture.repeat(8, 0).repeat(8, 1)[:H, :W]
+        for t in range(CLI_FRAMES):
+            noise = rng.integers(-20, 20, (H, W, 3))
+            frame = np.clip(np.roll(texture, 3 * t, axis=1) + noise, 0, 255)
+            write_png(os.path.join(frames, f"{t:05d}.png"),
+                      frame.astype(np.uint8))
+            mask = np.zeros((H, W), np.uint8)
+            for label, (y0, y1, x0, x1), (dy, dx) in zip(
+                    labels, ((60, 200, 80, 300), (260, 420, 480, 700)),
+                    ((2, 4), (1, 3))):  # boxes at 480 x 854, moving
+                rows = slice((y0 + dy * t) * H // 480, (y1 + dy * t) * H // 480)
+                cols = slice((x0 + dx * t) * W // 854, (x1 + dx * t) * W // 854)
+                mask[rows, cols] = label
+            write_png(os.path.join(annotations, f"{t:05d}.png"), mask,
+                      CLI_PALETTE)
+    sets = os.path.join(root, "trainval", "ImageSets", "2017")
+    os.makedirs(sets)
+    with open(os.path.join(sets, "val.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return names
+
+
+def direct_masks(model, cfg, video_id: int) -> tuple:
+    """The masks `evaluate` should write for one video: its frames read
+    and its first-frame objects mapped as the harness does, one
+    `model.forward`, device fusion, the labels mapped back."""
+    from sam_pt_torch.vos_eval.data.mask_mapper import MaskMapper
+    from sam_pt_torch.vos_eval.eval import (build_dataset,
+                                            device_fuse_index_masks)
+
+    reader = list(build_dataset(cfg).get_datasets())[video_id]
+    mapper = MaskMapper()
+    rgbs, masks = [], []
+    for data in reader:
+        rgbs.append(data["rgb"])
+        if "mask" in data:
+            onehot, _ = mapper.convert_mask(data["mask"])
+            masks.append(onehot)
+    query = masks[0]
+    video = {"image": np.stack(rgbs), "target_hw": (H, W),
+             "query_masks": query,
+             "query_point_timestep": np.zeros(len(query), np.float32)}
+    out = model.forward(video)
+    fused = device_fuse_index_masks(out["logits"], query, [0] * len(query))
+    return reader.vid_name, [mapper.remap_index_mask(m) for m in fused]
+
+
+def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
+    """The port's VOS evaluation CLI with the repo's default model over a
+    synthetic DAVIS-2017 tree of two 24 x 480 x 854 videos (see the
+    module's docstring, phase 11). `model` holds the overrides that give
+    both runs their model (a rehearsal on the CPU passes `device=cpu` and
+    a small model)."""
+    import shutil
+    import tempfile
+
+    from sam_pt_torch.config import compose, instantiate
+    from sam_pt_torch.config import resolve_interpolations
+    from sam_pt_torch.vos_eval.data.image_io import read_index_mask
+    from sam_pt_torch.vos_eval.eval import CONFIG_DIR, build_dataset, evaluate
+
+    here = os.path.dirname(os.path.realpath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_phase_", dir=os.path.join(here,
+                                                                   "build"))
+    try:
+        t0 = time.perf_counter()
+        names = make_davis_tree(os.path.join(root, "DAVIS"))
+        log(f"cli: wrote the DAVIS tree ({len(names)} videos x "
+            f"{CLI_FRAMES} PNG frames {H} x {W}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        overrides = [
+            "dataset=D17", "size=480", f"d17_path={root}/DAVIS",
+            f"output={root}/out0", "visualize_results=false", *model]
+        cfg = resolve_interpolations(compose(CONFIG_DIR, "vos_eval_root",
+                                             overrides))
+        t0 = time.perf_counter()
+        sam_pt = instantiate(cfg["model"])
+        bias_for_a_live_run(sam_pt)
+        torch.cuda.synchronize()
+        log(f"cli: instantiated cfg['model'] ({type(sam_pt).__name__}: SAM "
+            f"{len(sam_pt.sam_predictor.model.image_encoder.blocks)} blocks "
+            f"{sam_pt.sam_predictor.model.dtype}, "
+            f"{type(sam_pt.point_tracker).__name__}) on {sam_pt.device} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if sam_pt.device.type != cfg["device"]:
+            raise SystemExit(f"cli: the model is not on {cfg['device']}")
+        cfg["model"] = sam_pt
+        rng_state = sam_pt.rng.bit_generator.state
+
+        fa.reset_launch_counts()
+        results = evaluate(cfg)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        expected = launch_schedule(sam_pt, [CLI_FRAMES] * 2,
+                                   [2 * CLI_FRAMES] * 2)
+        log(f"cli: launches {launches} expected {expected}")
+        if launches != expected:
+            raise SystemExit("cli: launch counts differ from the schedule")
+        out = cfg["output"]
+        written = {n: sorted(os.listdir(os.path.join(out, n)))
+                   for n in names}
+        jf = results.get("J&F-Mean")
+        ok = (all(len(v) == CLI_FRAMES for v in written.values())
+              and os.path.exists(out + ".zip")
+              and results["total_frames"] == 2 * CLI_FRAMES
+              and jf is not None and np.isfinite(jf) and 0.0 <= jf <= 1.0)
+        log(f"cli: evaluate wrote {[len(v) for v in written.values()]} "
+            f"PNGs and {os.path.basename(out)}.zip, "
+            f"{results['total_frames']} frames, J&F {jf} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("cli: the run's outputs are wrong")
+
+        sam_pt.rng.bit_generator.state = rng_state
+        for v in range(len(names)):
+            name, masks = direct_masks(sam_pt, cfg, v)
+            labels = set()
+            for t, frame in enumerate(written[name]):
+                got = read_index_mask(os.path.join(out, name, frame))[0]
+                labels |= set(np.unique(got).tolist())
+                if not np.array_equal(got, masks[t]):
+                    diff = int((got != masks[t]).sum())
+                    raise SystemExit(f"cli: {name}/{frame} differs from the "
+                                     f"direct forward at {diff} pixels")
+            log(f"cli: {name}: {len(written[name])} written masks equal the "
+                f"direct forward's pixel for pixel, labels {sorted(labels)}")
+
+        reader = next(iter(build_dataset(cfg).get_datasets()))
+        t0 = time.perf_counter()
+        for _ in reader:
+            pass
+        read_s = time.perf_counter() - t0
+        cfg["output"] = f"{root}/out1"
+        timed = evaluate(cfg)
+        log(f"cli: timed evaluate: {timed['total_frames']} frames in "
+            f"{timed['total_process_time']:.3f} s = FPS {timed['fps']:.3f}; "
+            f"the host reads a video ({CLI_FRAMES} PNG frames and the "
+            f"first annotation, {H} x {W}) in {read_s:.3f} s; on {card}")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sam_pt_torch.vos_eval.eval",
+             "dataset=D17", "size=480", f"d17_path={root}/DAVIS",
+             f"output={root}/out2", "max_videos=1", "max_frames=8",
+             "score=false", "visualize_results=false", *model],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        fps = [line for line in lines if line.startswith("FPS:")]
+        on = [line for line in lines if line.startswith("Model on")]
+        ok = (proc.returncode == 0 and len(fps) == 1
+              and on == [f"Model on {sam_pt.device}"])
+        log(f"cli: python -m sam_pt_torch.vos_eval.eval (1 video, 8 frames) "
+            f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+            f"{'; '.join(on + fps)} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+            raise SystemExit("cli: the entry point failed")
+        del sam_pt, cfg
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # JSON row -> (source, the TPU function it replaces)
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -1035,12 +1245,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    try:
-        import cv2  # noqa: F401
-        log("cv2 importable: yes")
-    except ImportError:
-        log("cv2 importable: no (the mixed negative sampler skips "
-            "Shi-Tomasi; a host-side sampling difference)")
+    for name, without in (
+            ("cv2", "the mixed negative sampler skips Shi-Tomasi, a "
+                    "host-side sampling difference; frame resizing in the "
+                    "CLI needs it"),
+            ("yaml", "the port reads its configs with its own reader"),
+            ("PIL", "the port reads PNG frames with its own codec; JPEG "
+                    "frames and GIF visualisations need it"),
+            ("pandas", "the port's scorers use plain tables and csv")):
+        try:
+            __import__(name)
+            log(f"{name} importable: yes")
+        except ImportError:
+            log(f"{name} importable: no ({without})")
 
     # The port and its kernel sources must be this checkout's, beside the
     # script, not a copy found elsewhere on the path.
@@ -1104,6 +1321,7 @@ def main() -> int:
                                            device_fuse_index_masks, card,
                                            profiling)
     tracker_phase(device, card)
+    cli_phase(fa, card)
 
     log(json.dumps({"kernels": kernel_json(report, launches, route_launches,
                                            default_launches)}))

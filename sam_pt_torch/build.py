@@ -80,9 +80,9 @@ def build_sam_pt(device: Union[str, torch.device],
     if tracker == "cotracker":
         model = randomize_(CoTracker(s=8, stride=4).to(device), generator)
         point_tracker = CoTrackerPointTracker(
-            model.to(dtype).eval().requires_grad_(False),
             interp_shape=(384, 512), support_grid_size=2,
-            support_grid_every_n_frames=12, iters=6)
+            support_grid_every_n_frames=12, iters=6,
+            model=model.to(dtype).eval().requires_grad_(False))
     else:
         point_tracker = TRACKER_REGISTRY[tracker](
             allow_random_init=True, seed=seed + 1, device=device,

@@ -8,12 +8,13 @@ before each point's first window). Visibility = sigmoid > threshold.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ....ops.sampling import bilinear_sample
+from ....utils.checkpoint import load_or_randomize_
 from ..api import PointTracker, encode_in_chunks
 from .model import CoTracker
 
@@ -32,11 +33,33 @@ def get_points_on_a_grid(grid_size: int, extent_hw) -> np.ndarray:
 
 
 class CoTrackerPointTracker(PointTracker):
-    def __init__(self, model: CoTracker, interp_shape=(384, 512),
+    """The keys of `configs/model/point_tracker/cotracker.yaml`, in the JAX
+    constructor's order, plus `seed` and `device` for random weights, as
+    the PIPS tracker takes them. The public `cotracker_stride_4_wind_8.pth`
+    loads as it is; a missing file raises unless `allow_random_init`. A
+    module that is already built comes in by `model=` (then
+    `checkpoint_path`, `s`, `stride`, `dtype` and the rest of the weights'
+    keys are not read). `add_debug_visualisations` is accepted and unused,
+    as in the JAX package."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None,
+                 interp_shape=(384, 512),
                  visibility_threshold: float = 0.7,
                  support_grid_size: int = 2,
-                 support_grid_every_n_frames: int = 12, iters: int = 6,
-                 encode_chunk: int = 8):
+                 support_grid_every_n_frames: int = 12,
+                 add_debug_visualisations: bool = False,
+                 s: int = 8, stride: int = 4, iters: int = 6,
+                 encode_chunk: int = 8,
+                 dtype: torch.dtype = torch.float32,
+                 allow_random_init: bool = False, seed: int = 0,
+                 device: Union[str, torch.device] = "cuda",
+                 model: Optional[CoTracker] = None):
+        if model is None:
+            model = CoTracker(s=s, stride=stride)
+            load_or_randomize_(model, checkpoint_path,
+                               allow_random_init=allow_random_init,
+                               seed=seed, device=device)
+            model.to(dtype).eval().requires_grad_(False)
         self.model = model
         self.interp_shape = tuple(interp_shape) if interp_shape else None
         self.visibility_threshold = visibility_threshold

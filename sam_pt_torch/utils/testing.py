@@ -1,0 +1,50 @@
+"""A small SamPt on random weights, for smoke runs of the entry points
+(counterpart of `build_tiny_sam_pt` in `sam_pt_tpu/utils/testing.py`):
+the tiny SAM (ViT of width 32, depth 2, 64-pixel input) and PIPS at width
+16 (stride 4, 4-frame windows, 2 iterations), N(0, 0.02^2) weights from a
+generator seeded with `seed`. `configs/model/sam_pt_tiny_test.yaml` names
+it, so that `model=sam_pt_tiny_test` runs the CLI in seconds on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from ..models.sam.predictor import SamPredictor
+from ..models.sam.sam_model import Sam
+from ..models.sam_pt import SamPt
+from ..models.tracker.pips.model import Pips
+from ..models.tracker.pips.tracker import PipsPointTracker
+from .checkpoint import randomize_
+
+TINY_VIT = dict(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+                window_size=2)
+
+
+def build_tiny_sam_pt(seed: int = 0,
+                      device: Union[str, torch.device] = "cuda",
+                      **settings) -> SamPt:
+    device = torch.device(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    sam = randomize_(Sam(TINY_VIT, image_size=64).to(device), generator)
+    tracker = PipsPointTracker(stride=4, s=4, iters=2, allow_random_init=True,
+                               seed=seed, device=device)
+    tracker.model = randomize_(
+        Pips(s=4, stride=4, latent_dim=16, hidden_dim=32,
+             mixer_depth=2).to(device), generator).eval().requires_grad_(
+                 False)
+    defaults = dict(
+        sam_iou_threshold=0.0,
+        positive_points_per_mask=4,
+        negative_points_per_mask=1,
+        positive_point_selection_method="random",
+        negative_point_selection_method="random",
+        iterative_refinement_iterations=0,
+        sam_decode_chunk=16,
+        sam_encode_chunk=4,
+    )
+    defaults.update(settings)
+    return SamPt(point_tracker=tracker,
+                 sam_predictor=SamPredictor(sam.eval().requires_grad_(False)),
+                 **defaults)

@@ -2,19 +2,23 @@
 roofline bound of each kernel case against counts made by hand from the
 main path's shapes, the library yardsticks (one
 `scaled_dot_product_attention` call each) against the plain version of the
-kernel they stand beside, in float32 at small shapes, and the kernel JSON
-line's rows.
+kernel they stand beside, in float32 at small shapes, the kernel JSON
+line's rows, and the CLI phase rehearsed at a small size with the tiny
+SamPt (its synthetic DAVIS tree also at full size).
 
 Tolerance of the yardsticks: 1e-5 absolute and relative. Both sides compute
 the same softmax attention in float32 (the plain versions' bf16 roundings
 are no-ops in float32) and differ only in summation order.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from sam_pt_torch.ops import flash_attention as fa
+from sam_pt_torch.vos_eval.data.image_io import read_index_mask
 
 BF16 = 2
 
@@ -210,3 +214,42 @@ def test_launch_schedule_reads_the_model(variant, window, global_):
     got = chip_smoke.launch_schedule(sam_pt, [24], [48])
     assert got == {"window": 6 * window, "global": 6 * global_,
                    "cross": 5 * 14 * 2, "relpos": 0}
+
+
+def test_cli_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The CLI phase end to end on the CPU at a small size, with the tiny
+    SamPt: the tree, `evaluate`'s outputs, the written masks against the
+    direct forward pixel for pixel, the timed run and the entry point as
+    a subprocess. The plain paths launch no kernel here, so the schedule
+    is the counts' zeros."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "H", 48)
+    monkeypatch.setattr(chip_smoke, "W", 80)
+    monkeypatch.setattr(chip_smoke, "CLI_FRAMES", 5)
+    monkeypatch.setattr(chip_smoke, "launch_schedule",
+                        lambda *a: {k: 0 for k in fa.LAUNCHES})
+    chip_smoke.cli_phase(fa, "the CPU", model=(
+        "device=cpu", "model=sam_pt_tiny_test", "size=-1"))
+    out = capsys.readouterr().out
+    for line in ("evaluate wrote [5, 5] PNGs", "video0: 5 written masks "
+                 "equal", "labels [0, 2, 5]", "exit 0", "Model on cpu"):
+        assert line in out
+    assert "FAIL" not in out
+
+
+def test_cli_tree_labels_and_boxes(tmp_path):
+    """The CLI phase's tree at full size: two moving boxes a frame, the
+    second video's labelled 2 and 5, in the DAVIS-2017 layout."""
+    names = chip_smoke.make_davis_tree(str(tmp_path))
+    ann = tmp_path / "trainval" / "Annotations" / "480p"
+    for name, labels in zip(names, chip_smoke.CLI_LABELS):
+        files = sorted(os.listdir(ann / name))
+        assert len(files) == chip_smoke.CLI_FRAMES
+        first, palette = read_index_mask(str(ann / name / files[0]))
+        last, _ = read_index_mask(str(ann / name / files[-1]))
+        assert first.shape == (chip_smoke.H, chip_smoke.W)
+        assert set(np.unique(first)) == {0, *labels}
+        assert not np.array_equal(first, last)  # the boxes move
+        assert palette == chip_smoke.CLI_PALETTE
+    assert (tmp_path / "trainval" / "ImageSets" / "2017" / "val.txt"
+            ).read_text().split() == names

@@ -94,7 +94,7 @@ class TestTracker:
         params, tmodel = weights
         jtr = JTracker(params=params, **_tracker_kwargs(), s=4, stride=4)
         jtr.model = JCoTracker(**TINY_COTRACKER)
-        ttr = TTracker(tmodel, **_tracker_kwargs())
+        ttr = TTracker(model=tmodel, **_tracker_kwargs())
 
         rng = np.random.default_rng(15)
         rgbs = rng.integers(0, 255, (1, 9, 48, 64, 3)).astype(np.uint8)

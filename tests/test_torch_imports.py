@@ -1,10 +1,15 @@
 """The port imports torch and never jax (nor the JAX package); its kernel modules build nothing
-at import; `chip_smoke.py` refuses to run without a CUDA device."""
+at import; `chip_smoke.py` refuses to run without a CUDA device. The
+port's CLI runs where jax, the JAX package, PyYAML, Pillow, pandas and
+cv2 cannot be imported (as on a machine that has only torch, numpy and
+scipy). CoTracker's tracker takes the keys of its YAML."""
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,7 +41,23 @@ SLICE_MODULES = [
     "sam_pt_torch.utils.query_points",
     "sam_pt_torch.utils.util",
     "sam_pt_torch.vos_eval.eval",
+    "sam_pt_torch.config",
+    "sam_pt_torch.config.core",
+    "sam_pt_torch.config.miniyaml",
+    "sam_pt_torch.utils.logging",
+    "sam_pt_torch.utils.testing",
+    "sam_pt_torch.utils.viz",
+    "sam_pt_torch.vos_eval.evaluator",
+    "sam_pt_torch.vos_eval.metrics",
+    "sam_pt_torch.vos_eval.davis2017eval",
+    "sam_pt_torch.vos_eval.bdd100keval",
+    "sam_pt_torch.vos_eval.data.image_io",
+    "sam_pt_torch.vos_eval.data.mask_mapper",
+    "sam_pt_torch.vos_eval.data.video_reader",
+    "sam_pt_torch.vos_eval.data.test_datasets",
 ]
+# Importable here but not on every machine the port runs on.
+BLOCKED = ["jax", "flax", "sam_pt_tpu", "yaml", "PIL", "pandas", "cv2"]
 
 
 def _run(code: str, cwd: str = ROOT):
@@ -80,3 +101,100 @@ def test_chip_smoke_needs_a_card():
                 "run_name='__main__')")
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_cli_runs_without_jax_yaml_pillow_or_pandas(tmp_path):
+    """`python -m sam_pt_torch.vos_eval.eval` on the CPU over a tiny
+    PNG-framed DAVIS tree (labels 2 and 5), with the tiny SamPt, where
+    every module of BLOCKED raises ImportError: it exits 0, scores the
+    run and writes the masks."""
+    from sam_pt_torch.vos_eval.data.image_io import read_png, write_png
+
+    stubs = tmp_path / "stubs"
+    for name in BLOCKED:
+        os.makedirs(stubs / name)
+        (stubs / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    rng = np.random.default_rng(0)
+    tree = tmp_path / "DAVIS"
+    frames = tree / "trainval" / "JPEGImages" / "480p" / "v"
+    annotations = tree / "trainval" / "Annotations" / "480p" / "v"
+    os.makedirs(frames)
+    os.makedirs(annotations)
+    palette = [0, 0, 0, 128, 0, 0, 0, 128, 0, 128, 128, 0, 0, 0, 128,
+               128, 0, 128]
+    for t in range(4):
+        write_png(str(frames / f"{t:05d}.png"),
+                  rng.integers(0, 255, (48, 64, 3)).astype(np.uint8))
+        mask = np.zeros((48, 64), np.uint8)
+        mask[10 + t:22 + t, 8:24] = 2
+        mask[30:42, 40:60] = 5
+        write_png(str(annotations / f"{t:05d}.png"), mask, palette)
+    os.makedirs(tree / "trainval" / "ImageSets" / "2017")
+    (tree / "trainval" / "ImageSets" / "2017" / "val.txt").write_text("v\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([str(stubs), ROOT]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "sam_pt_torch.vos_eval.eval", "device=cpu",
+         "size=-1", "model=sam_pt_tiny_test", f"d17_path={tree}",
+         f"output={tmp_path / 'out'}", "visualize_results=false"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Model on cpu" in proc.stdout and "FPS: " in proc.stdout
+    assert "J&F-Mean" in proc.stdout
+    written = sorted(os.listdir(tmp_path / "out" / "v"))
+    assert written == [f"{t:05d}.png" for t in range(4)]
+    first, palette_out = read_png(str(tmp_path / "out" / "v" / written[0]))
+    assert set(np.unique(first)) == {0, 2, 5}  # the query frame's labels
+    assert palette_out[:len(palette)] == palette
+    assert (tmp_path / "out.zip").exists()
+    # The stubs do block: the JAX package's CLI cannot start there.
+    proc = subprocess.run([sys.executable, "-c", "import yaml"],
+                          cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode != 0 and "blocked" in proc.stderr
+
+
+def test_cotracker_takes_its_yaml_keys(tmp_path):
+    """The keys of configs/model/point_tracker/cotracker.yaml build the
+    tracker with the values they hold; a state dict in the
+    public namespace loads as it is; a missing file raises unless
+    `allow_random_init`; a built module comes in by `model=`."""
+    from sam_pt_torch.config import load_yaml
+    from sam_pt_torch.models.tracker.cotracker.model import CoTracker
+    from sam_pt_torch.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker,
+    )
+    from torch_port_helpers import random_cotracker_state_dict, torch_sd
+
+    keys = load_yaml(os.path.join(
+        ROOT, "sam_pt_torch", "configs", "model", "point_tracker",
+        "cotracker.yaml"))
+    assert keys.pop("_target_").endswith("tracker.CoTrackerPointTracker")
+    assert keys.pop("device") == "${device}"
+    file = tmp_path / "cotracker_stride_4_wind_8.pth"
+    sd = random_cotracker_state_dict(seed=3)
+    torch.save(torch_sd(sd), file)
+    keys["checkpoint_path"] = str(file)
+    tracker = CoTrackerPointTracker(**keys, device="cpu")
+    assert (tracker.interp_shape, tracker.visibility_threshold,
+            tracker.support_grid_size, tracker.support_grid_every_n_frames,
+            tracker.s, tracker.stride, tracker.iters) == (
+                (384, 512), 0.7, 2, 12, 8, 4, 6)
+    got = tracker.model.state_dict()
+    assert set(got) == set(sd)
+    for key, value in sd.items():
+        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+    assert tracker.model.dtype == torch.float32  # the JAX default
+    keys["checkpoint_path"] = str(tmp_path / "absent.pth")
+    with pytest.raises(FileNotFoundError):
+        CoTrackerPointTracker(**keys, device="cpu")
+    keys["allow_random_init"] = True
+    with pytest.warns(UserWarning, match="random"):
+        tracker = CoTrackerPointTracker(**keys, seed=1, device="cpu",
+                                        dtype=torch.bfloat16)
+    assert tracker.model.dtype == torch.bfloat16
+    model = CoTracker(s=4, stride=4)
+    tracker = CoTrackerPointTracker(interp_shape=(32, 40), model=model)
+    assert tracker.model is model and (tracker.s, tracker.stride) == (4, 4)

@@ -290,7 +290,7 @@ def tiny_cotracker_pair():
     jtracker.model = JCoTracker(**TINY_COTRACKER)
     tcot = TCoTracker(**TINY_COTRACKER)
     tcot.load_state_dict(cotracker_state_dict_from_jax(cot_params))
-    return jtracker, TTracker(tcot.eval().requires_grad_(False),
+    return jtracker, TTracker(model=tcot.eval().requires_grad_(False),
                               **TINY_TRACKER)
 
 

@@ -69,7 +69,32 @@ Phases, in order; any failure exits non-zero before the verdict line:
      8 frames, unscored: the DAVIS scorer reads every annotated frame, as
      the JAX one does; the device left at its default): it must exit 0 on
      `cuda`.
-Then one JSON line with the per-kernel numbers, and as the last line
+ 12. Patch-filter phase (run after phase 6, on its SamPt): the main path
+     with `use_patch_matching_filtering` over 24 textured frames x 1
+     object (still, then moving): launches, output checks, every kind of
+     patch flag, the flags against the same similarities and cascade
+     computed on the CPU from the card's trajectories (equal except for
+     points with a similarity within 1e-4 of the threshold), the filter's
+     seconds.
+ 13. Crop phase (after 12, on the same SamPt): the main path with
+     `crop_pad_tokens` over the 24 x 1 video (global blocks over 36 x 64
+     tokens, 15 windows a frame): launches, output checks, the
+     embedding's pad rows zero, phase 5's kernels-vs-plain check, and the
+     encode stage's device time uncropped and cropped in turns.
+ 14. Interactive phase: the CLI's `simulate_interactive_point_correction`
+     with `SamPtInteractive` on the default model (online, 3 interactions
+     a frame, the default budget), composed as the JAX command is, over
+     the CLI tree's first video cut to 12 frames, both objects one at a
+     time: launches equal to 5 K3 a pass of each decode chain the model
+     ran, the interactions within budget, the history JSON and pickles
+     written, every IoU finite in [0, 1], J&F finite, the stages' host
+     times, the written masks equal to a direct `forward` per object with
+     the rng reset; then `input_only_one_gt_mask_point` over the same
+     video with the default model: launches as scheduled, J&F finite.
+Then one JSON line with the per-kernel numbers (rows of K1-K4 at the
+main path's shapes, K1/K2 at ViT-B's, `global_attention_crop` at phase
+13's grid and `image_to_token_interactive` at phase 14's 325 token keys,
+each held to its plain version in the kernel phase), and as the last line
 {"ok": true, "device": {...}}. The kernel phase alone:
 
     python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
@@ -102,6 +127,8 @@ TIMES = ("ms", "loop_ms", "plain_ms", "library_ms", "library_loop_ms",
          "bound_ms", "bound_by")
 VIDEOS = [(24, 1), (35, 3)]  # (frames, objects) at 480 x 854
 H, W = 480, 854
+# SAM's mask decoder: the IoU token and 4 mask tokens.
+DECODER_TOKENS = 5
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): dense bf16 tensor
 # cores and HBM3 bandwidth.
 PEAK_BF16_FLOP_S = 989e12
@@ -339,13 +366,102 @@ def kernel_cases(fa, device) -> dict:
                 library_relpos(*ops, scale=s),
                 ops, (b, kh * kw, kh * kw, 80))
 
+    # K2 on the grid that crop_pad_tokens leaves of a 480 x 854 frame
+    # (`crop_grid`), ViT-H's tables (127 rows) center-sliced to it.
+    def global_crop():
+        from sam_pt_torch.models.sam.image_encoder import rel_pos_table
+
+        kh, kw = crop_grid()
+        qkv = randn(4, kh * kw, 3 * 16 * 80)
+        rh = rel_pos_table(randn(127, 80, std=0.2), kh, kh, cropped=True)
+        rw = rel_pos_table(randn(127, 80, std=0.2), kw, kw, cropped=True)
+        bias = fa.global_bias(qkv, rh, rw, 16, kh, kw)
+        kw_ = dict(scale=80 ** -0.5, heads=16)
+        return (lambda: fa.global_attention_cuda(qkv, bias, kh=kh, kw=kw,
+                                                 **kw_),
+                lambda: fa.global_attention_plain(qkv, bias, kh=kh, kw=kw,
+                                                  **kw_),
+                library_fused_qkv(qkv, bias, kh=kh, **kw_),
+                (qkv, bias), (4 * 16, kh * kw, kh * kw, 80))
+
+    # K3 image->token in the interactive phase's box refinements: a full
+    # pass over INTERACTIVE_FRAMES frames, keys laid out as the decoder
+    # lays them (`interactive_key_mask`).
+    def cross_interactive():
+        b, nk = INTERACTIVE_FRAMES, interactive_tokens()
+        img, k, v = randn(b, 4096, 128), randn(b, nk, 128), randn(b, nk, 128)
+        valid = interactive_key_mask(b, device)
+        valid_u8 = valid.to(torch.uint8)
+        return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
+                                                **kc),
+                lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
+                                                 **kc),
+                library_cross(img, k, v, kv_valid=valid, **kc),
+                (img, k, v, valid_u8),
+                (b * 8, 4096, int(valid[0].sum()), 16))
+
     return {"window": window, "global": global_, "cross": cross,
             "cross_masked": cross_masked,
             "cross_unmasked": lambda: cross_masked(False),
             "relpos": lambda: relpos(64, 64, 64),
             "relpos_window": lambda: relpos(1600, 14, 14),
             "window_vit_b": lambda: window(12, 64),
-            "global_vit_b": lambda: global_(12, 64)}
+            "global_vit_b": lambda: global_(12, 64),
+            "global_crop": global_crop,
+            "cross_interactive": cross_interactive}
+
+
+def crop_grid(image_size: int = 1024) -> tuple:
+    """The rows and columns of SAM's 16-pixel tokens that cover an H x W
+    frame after the longest-side resize to `image_size`: 36 x 64 of 64 x 64
+    for 480 x 854 (576 x 1024)."""
+    from sam_pt_torch.ops.resize import get_longest_side_target_hw
+
+    th, tw = get_longest_side_target_hw(H, W, image_size)
+    return -(-th // 16), -(-tw // 16)
+
+
+# The interactive phase's video length (frames of the synthetic tree).
+INTERACTIVE_FRAMES = 12
+# Visible points of the key mask of the interactive kernel row: the
+# default model's 17 initial points and 18 added ones, halfway through a
+# 12-frame online run at 3 interactions a frame.
+INTERACTIVE_VISIBLE = 35
+
+
+def interactive_capacity() -> int:
+    """The prompt's slots in the interactive phase: the default model's
+    points a mask (16 k-medoids positives and 1 negative) and
+    SamPtInteractive's default interaction budget (300)."""
+    import inspect
+
+    from sam_pt_torch.build import SAM_PT_SETTINGS
+    from sam_pt_torch.models.sam_pt_interactive import SamPtInteractive
+
+    budget = inspect.signature(SamPtInteractive).parameters[
+        "interactions_max"].default
+    return (SAM_PT_SETTINGS["positive_points_per_mask"]
+            + SAM_PT_SETTINGS["negative_points_per_mask"] + budget)
+
+
+def interactive_tokens() -> int:
+    """Keys of the decoder's image->token attention in the interactive
+    chain's box-refinement passes (12 of its 14): the output tokens, the
+    prompt's capacity, 2 box corners and the appended pad slot."""
+    return DECODER_TOKENS + interactive_capacity() + 2 + 1
+
+
+def interactive_key_mask(b: int, device) -> torch.Tensor:
+    """[b, interactive_tokens()] bool: what `Sam.decode_masks` lets a
+    refinement pass attend to: the output tokens, the visible points at the
+    front of the prompt, the 2 box corners; not the capacity's empty slots
+    nor the pad slot (a box is given)."""
+    valid = torch.zeros((b, interactive_tokens()), dtype=torch.bool,
+                        device=device)
+    corners = DECODER_TOKENS + interactive_capacity()
+    valid[:, :DECODER_TOKENS + INTERACTIVE_VISIBLE] = True
+    valid[:, corners:corners + 2] = True
+    return valid
 
 
 def build_phase() -> None:
@@ -995,28 +1111,31 @@ CLI_MODEL = ("model.sam_predictor.allow_random_init=true",
              "model.point_tracker.allow_random_init=true")
 
 
-def make_davis_tree(root: str) -> list:
+def make_davis_tree(root: str, frames=None, videos=None) -> list:
     """A DAVIS-2017 layout under `root`: per video, random-texture PNG
     frames (8 x 8 blocks of random colour plus noise) and one palette
-    annotation a frame with two boxes moving right and down."""
+    annotation a frame with two boxes moving right and down. `frames`
+    (CLI_FRAMES by default) and `videos` (all) give the first frames of
+    the first videos of the full tree."""
     from sam_pt_torch.vos_eval.data.image_io import write_png
 
+    frames = CLI_FRAMES if frames is None else frames
     rng = np.random.default_rng(11)
     names = []
-    for v, labels in enumerate(CLI_LABELS):
+    for v, labels in enumerate(CLI_LABELS[:videos]):
         name = f"video{v}"
         names.append(name)
-        frames = os.path.join(root, "trainval", "JPEGImages", "480p", name)
+        images = os.path.join(root, "trainval", "JPEGImages", "480p", name)
         annotations = os.path.join(root, "trainval", "Annotations", "480p",
                                    name)
-        os.makedirs(frames)
+        os.makedirs(images)
         os.makedirs(annotations)
         texture = rng.integers(0, 255, (H // 8 + 1, W // 8 + 1, 3))
         texture = texture.repeat(8, 0).repeat(8, 1)[:H, :W]
-        for t in range(CLI_FRAMES):
+        for t in range(frames):
             noise = rng.integers(-20, 20, (H, W, 3))
             frame = np.clip(np.roll(texture, 3 * t, axis=1) + noise, 0, 255)
-            write_png(os.path.join(frames, f"{t:05d}.png"),
+            write_png(os.path.join(images, f"{t:05d}.png"),
                       frame.astype(np.uint8))
             mask = np.zeros((H, W), np.uint8)
             for label, (y0, y1, x0, x1), (dy, dx) in zip(
@@ -1177,6 +1296,394 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def textured_frames(n_frames: int, seed: int) -> np.ndarray:
+    """[T, H, W, 3] uint8: 8 x 8 blocks of random colour, still for the
+    first half of the video and then moving right 2 pixels a frame, plus
+    noise of +-8: a point's patches stay similar while the texture is
+    still and, unless the point follows it, stop being similar after."""
+    rng = np.random.default_rng(seed)
+    texture = rng.integers(0, 255, (H // 8 + 1, W // 8 + 1, 3))
+    texture = texture.repeat(8, 0).repeat(8, 1)[:H, :W]
+    still = n_frames // 2
+    return np.stack([
+        np.clip(np.roll(texture, 2 * max(0, t - still + 1), axis=1)
+                + rng.integers(-8, 8, (H, W, 3)), 0, 255)
+        for t in range(n_frames)]).astype(np.uint8)
+
+
+# Patch similarities of the card and of the CPU differ in summation order
+# (the LAB conversion, the bilinear taps); a flag may differ only where a
+# similarity lies this close to the threshold.
+PATCH_THRESHOLD_BAND = 1e-4
+
+
+def patch_filter_phase(sam_pt, fa, fuse, card: str) -> None:
+    """The main-path SamPt with `use_patch_matching_filtering` over a
+    24-frame textured video with one object (`textured_frames`), the
+    filter timed: launches equal to the
+    schedule, output checks, and the visibility flags against the same
+    similarities and cascade computed on the CPU from the card's
+    trajectories and the tracker's visibilities."""
+    from sam_pt_torch.models.sam_pt import patch_similarities
+    from sam_pt_torch.utils.util import PointVisibilityType
+
+    t = 24
+    video = make_video(t, 1, seed=0)
+    video["image"] = textured_frames(t, seed=12)
+    n_points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
+    original = sam_pt._patch_filter
+    calls = []
+
+    def recorded(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags = original(*args)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, args, flags))
+        return flags
+
+    sam_pt._patch_filter = recorded
+    sam_pt.use_patch_matching_filtering = True
+    try:
+        fa.reset_launch_counts()
+        out, masks = run_video(sam_pt, video, fuse)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+    finally:
+        sam_pt.use_patch_matching_filtering = False
+        del sam_pt._patch_filter
+    expected = launch_schedule(sam_pt, [t], [t])
+    log(f"patch filter: launches {launches} expected {expected}")
+    if launches != expected or len(calls) != 1:
+        raise SystemExit("patch filter: launch counts differ")
+    log(f"patch filter: video {t} frames x 1 object: "
+        + check_outputs(out, masks, t, 1, n_points))
+
+    seconds, (images, qp, traj, vis), flags = calls[0]
+    threshold = sam_pt.patch_similarity_threshold
+    qp_cpu = torch.from_numpy(qp.reshape(-1, 3))
+    sims_card = patch_similarities(images, traj.reshape(t, -1, 2),
+                                   qp_cpu.to(images.device),
+                                   sam_pt.patch_size).cpu()
+    sims_cpu = patch_similarities(images.cpu(), traj.cpu().reshape(t, -1, 2),
+                                  qp_cpu, sam_pt.patch_size)
+    flags_cpu = original(images.cpu(), qp, traj.cpu(), vis.cpu())
+    # Points with a similarity in the band may cascade differently.
+    settled = ~((sims_cpu - threshold).abs() < PATCH_THRESHOLD_BAND).any(0)
+    got = flags.cpu().reshape(t, -1)[:, settled]
+    ref = flags_cpu.reshape(t, -1)[:, settled]
+    kinds = {k.name: int((flags == float(k)).sum())
+             for k in (PointVisibilityType.VISIBLE,
+                       PointVisibilityType.PATCH_NON_SIMILAR,
+                       PointVisibilityType.REJECTED_AFTER_PATCH_WAS_NON_SIMILAR)}
+    ok = bool(torch.equal(got, ref)) and all(kinds.values())
+    log(f"patch filter: flags {kinds}; card vs CPU similarities max |diff| "
+        f"{float((sims_card - sims_cpu).abs().max()):.3e}, flags equal on "
+        f"{int(settled.sum())}/{settled.numel()} points (the others within "
+        f"{PATCH_THRESHOLD_BAND:g} of the threshold {threshold:g}); the "
+        f"filter took {seconds:.4f} s ({t} frames x {n_points} points) on "
+        f"{card} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("patch filter: the card's flags differ from the "
+                         "CPU's, or a kind of flag never occurred")
+
+
+def crop_phase(sam_pt, fa, fuse, card: str, profiling: bool = False) -> dict:
+    """The main-path SamPt with `crop_pad_tokens` over the slice's first
+    video (24 x 1): launches equal to the schedule, output checks, the pad
+    region of the embedding zero, kernels against plain versions through
+    the encoder and the decode chain, then the encode stage's device time
+    uncropped and cropped, in turns (with `profiling`, each one's device
+    time by kernel). Returns the launches."""
+    model = sam_pt.sam_predictor.model
+    t = 24
+    video = make_video(t, 1, seed=0)
+    n_points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
+    kh, kw = crop_grid(model.image_size)
+    model.crop_pad_tokens = True
+    try:
+        fa.reset_launch_counts()
+        out, masks = run_video(sam_pt, video, fuse)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        expected = launch_schedule(sam_pt, [t], [t])
+        log(f"crop: launches {launches} expected {expected} (global blocks "
+            f"over {kh} x {kw} tokens)")
+        if launches != expected:
+            raise SystemExit("crop: launch counts differ")
+        log(f"crop: video {t} frames x 1 object: "
+            + check_outputs(out, masks, t, 1, n_points))
+        images = torch.from_numpy(video["image"][:4]).to(sam_pt.device)
+        emb = sam_pt.sam_predictor.encode_frames(images, (H, W))
+        pad = float(emb[:, kh:].abs().max()) if kh < emb.shape[1] else 0.0
+        if pad != 0.0 or not bool(torch.isfinite(emb).all()):
+            raise SystemExit(f"crop: the embedding's pad rows are not zero "
+                             f"({pad})")
+        reference_phase(sam_pt, fa, video, label="crop reference")
+    finally:
+        model.crop_pad_tokens = False
+
+    images = torch.from_numpy(video["image"]).to(sam_pt.device)
+    times = {False: [], True: []}
+    for crop in (False, True, True, False):
+        model.crop_pad_tokens = crop
+        times[crop].append(profiled_ms(
+            lambda: sam_pt._encode_all_frames(images), calls=1))
+        if profiling and len(times[crop]) == 1:
+            device_profile(f"encode_{t}_{'crop' if crop else 'full'}",
+                           lambda: sam_pt._encode_all_frames(images), card)
+    model.crop_pad_tokens = False
+    full, cropped = (float(np.mean(times[c])) for c in (False, True))
+    log(f"crop: encode of {t} frames, device time by the profiler (turns "
+        f"A B B A): uncropped {times[False]} ms, cropped {times[True]} ms; "
+        f"cropped / uncropped {cropped / full:.3f} (global blocks "
+        f"{kh * kw} of {emb.shape[1] ** 2} tokens, window blocks "
+        f"{window_count(kh, kw)} of {window_count(*emb.shape[1:3])} windows "
+        f"a frame) on {card}")
+    return launches
+
+
+def window_count(kh: int, kw: int, window: int = 14) -> int:
+    return -(-kh // window) * -(-kw // window)
+
+
+def interactive_schedule(sam_pt, encodes) -> dict:
+    """Launches of the interactive forwards: K1 and K2 per encode chunk as
+    in `launch_schedule`, K3 5 per decoder pass of each decode chain the
+    model ran (`chain_calls`: one a decoded chunk of frames)."""
+    passes = 2 + sam_pt.iterative_refinement_iterations
+    return dict(launch_schedule(sam_pt, encodes, []),
+                cross=5 * passes * sam_pt.chain_calls)
+
+
+def one_point_schedule(sam_pt, frames: int, objects: int) -> dict:
+    """Launches of a one-point run over one video: each object's query
+    frame encoded and decoded by one pass, then the video as on the plain
+    path."""
+    expected = launch_schedule(sam_pt, [1] * objects + [frames],
+                               [objects * frames])
+    expected["cross"] += 5 * objects
+    return expected
+
+
+def interactive_stages(sam_pt):
+    """Time the interactive forward's stages on the host clock, each call
+    between two synchronisations: the encode, the decodes (with their
+    downloads), the tracker runs and the new points' DBSCAN + k-medoids.
+    Returns the dict the (seconds, calls) accumulate in and a function
+    that undoes the timing."""
+    from sam_pt_torch.models import sam_pt_interactive as module
+
+    stages = {}
+    methods = ("_encode_all_frames", "_predict_frames", "_track_points")
+    cluster = module.extract_largest_cluster_points
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds, calls = stages.get(name, (0.0, 0))
+            stages[name] = (seconds + time.perf_counter() - t0, calls + 1)
+            return out
+        return call
+
+    def restore():
+        for name in methods:
+            delattr(sam_pt, name)
+        module.extract_largest_cluster_points = cluster
+
+    for name in methods:
+        setattr(sam_pt, name, timed(name, getattr(sam_pt, name)))
+    module.extract_largest_cluster_points = timed(
+        "extract_largest_cluster_points", cluster)
+    return stages, restore
+
+
+def direct_interactive_masks(model, cfg) -> tuple:
+    """The masks the interactive run of `evaluate` should write for the
+    tree's first video: its frames and every frame's objects read as the
+    harness reads them, one `model.forward` an object with its ground
+    truth, device fusion, the labels mapped back."""
+    from sam_pt_torch.vos_eval.data.mask_mapper import MaskMapper
+    from sam_pt_torch.vos_eval.eval import (build_dataset,
+                                            device_fuse_index_masks)
+
+    reader = next(iter(build_dataset(cfg).get_datasets()))
+    mapper = MaskMapper()
+    rgbs, onehots = [], []
+    for data in reader:
+        rgbs.append(data["rgb"])
+        onehots.append(mapper.convert_mask(data["mask"],
+                                           old_labels_allowed=True)[0])
+    query = onehots[0]
+    logits = []
+    for i in range(len(query)):
+        video = {"image": np.stack(rgbs), "target_hw": (H, W),
+                 "query_masks": query[i:i + 1],
+                 "query_point_timestep": np.zeros(1, np.float32),
+                 "gt_masks": [m[i:i + 1] for m in onehots],
+                 "video_id": f"direct-{i}"}
+        logits.append(model.forward(video)["logits"])
+    fused = device_fuse_index_masks(torch.cat(logits), query,
+                                    [0] * len(query))
+    return reader.vid_name, [mapper.remap_index_mask(m) for m in fused]
+
+
+# The interactive run's model: the default model under SamPtInteractive,
+# online, at most 3 interactions a frame, the default budget.
+INTERACTIVE_MODEL = (
+    "model._target_=sam_pt_torch.models.sam_pt_interactive.SamPtInteractive",
+    "+model.online=true", "+model.interactions_max_per_frame=3")
+
+
+def interactive_phase(fa, card: str, model=CLI_MODEL,
+                      interactive=INTERACTIVE_MODEL) -> dict:
+    """The CLI's interactive option and its one-point option, with the
+    repo's default model, over the first video of the CLI phase's tree
+    cut to INTERACTIVE_FRAMES frames (see the module's docstring, phase
+    14). `model` and `interactive` hold the overrides that give the runs
+    their model (a rehearsal on the CPU passes `device=cpu` and a small
+    model). Returns the interactive run's launches."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from sam_pt_torch.config import compose, instantiate
+    from sam_pt_torch.config import resolve_interpolations
+    from sam_pt_torch.vos_eval.data.image_io import read_index_mask
+    from sam_pt_torch.vos_eval.eval import CONFIG_DIR, evaluate
+
+    here = os.path.dirname(os.path.realpath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="interactive_phase_",
+                            dir=os.path.join(here, "build"))
+    t = INTERACTIVE_FRAMES
+    try:
+        (name,) = make_davis_tree(os.path.join(root, "DAVIS"), frames=t,
+                                  videos=1)
+        base = ["dataset=D17", "size=480", f"d17_path={root}/DAVIS",
+                "visualize_results=false", *model]
+        cfg = resolve_interpolations(compose(CONFIG_DIR, "vos_eval_root", [
+            *base, f"output={root}/out0",
+            "simulate_interactive_point_correction=true", *interactive,
+            f"+model.output_root={root}/interactions"]))
+        sam_pt = instantiate(cfg["model"])
+        bias_for_a_live_run(sam_pt)
+        if (type(sam_pt).__name__ != "SamPtInteractive"
+                or sam_pt.device.type != cfg["device"]):
+            raise SystemExit(f"interactive: built {type(sam_pt).__name__} "
+                             f"on {sam_pt.device}")
+        cfg["model"] = sam_pt
+        rng_state = sam_pt.rng.bit_generator.state
+        stages, restore = interactive_stages(sam_pt)
+        fa.reset_launch_counts()
+        sam_pt.chain_calls = 0
+        t0 = time.perf_counter()
+        try:
+            results = evaluate(cfg)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        expected = interactive_schedule(sam_pt, [t, t])
+        n_ppm = (sam_pt.positive_points_per_mask
+                 + sam_pt.negative_points_per_mask)
+        log(f"interactive: launches {launches} expected {expected} "
+            f"({sam_pt.chain_calls} decode chains of "
+            f"{2 + sam_pt.iterative_refinement_iterations} passes, "
+            f"{DECODER_TOKENS + n_ppm + sam_pt.interactions_max + 3} tokens "
+            f"in a refinement pass)")
+        if launches != expected or not sam_pt.chain_calls:
+            raise SystemExit("interactive: launch counts differ")
+
+        budget = sam_pt.interactions_max - n_ppm
+        used, ious, actions = [], [], {}
+        for i in range(2):
+            folder = os.path.join(root, "interactions",
+                                  f"000--{name}--mask-{i}")
+            with open(os.path.join(folder, "history.json")) as f:
+                history = json.load(f)
+            for file in ("achieved_iou_thresholds_cache.pkl", "final.pkl"):
+                with open(os.path.join(folder, file), "rb") as f:
+                    pickle.load(f)
+            per_frame = {}
+            for e in history:
+                key = (e["frame_idx"], e["current_iou_threshold"])
+                per_frame[key] = per_frame.get(key, 0) + 1
+                action = f"{e['action']} {e['type']}"
+                actions[action] = actions.get(action, 0) + 1
+                ious += [e[k] for k in ("iou_before", "iou_after",
+                                        "overall_iou_before",
+                                        "overall_iou_after")]
+            used.append(len(history))
+            if len(history) > budget or max(
+                    per_frame.values(), default=0) > 3:
+                raise SystemExit(f"interactive: object {i} used "
+                                 f"{len(history)} interactions")
+        ious = np.asarray(ious)
+        jf = results.get("J&F-Mean")
+        ok = (np.isfinite(ious).all() and ((ious >= 0) & (ious <= 1)).all()
+              and jf is not None and np.isfinite(jf)
+              and results["total_frames"] == t)
+        log(f"interactive: evaluate ({t} frames x 2 objects, online, IoU "
+            f"threshold {sam_pt.online_interactive_iou_threshold}) used "
+            f"{used} interactions of {budget} each ({actions}), histories "
+            f"and pickles written, {ious.size} IoUs finite in [0, 1], J&F "
+            f"{jf}, {wall:.3f} s, FPS {results['fps']:.3f} on {card} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("interactive: the run's outputs are wrong")
+        timed = sum(seconds for seconds, _ in stages.values())
+        log("interactive: stages (serialized, host clock): " + ", ".join(
+            f"{k} {v[0]:.3f} s ({v[1]} calls)" for k, v in stages.items())
+            + f", rest (the IoU and boundary scores, the harness) "
+            f"{wall - timed:.3f} s")
+
+        out = cfg["output"]
+        sam_pt.rng.bit_generator.state = rng_state
+        sam_pt.output_root = os.path.join(root, "direct")
+        _, masks = direct_interactive_masks(sam_pt, cfg)
+        frames = sorted(os.listdir(os.path.join(out, name)))
+        for ti, frame in enumerate(frames):
+            got = read_index_mask(os.path.join(out, name, frame))[0]
+            if not np.array_equal(got, masks[ti]):
+                raise SystemExit(f"interactive: {name}/{frame} differs from "
+                                 f"the direct forward at "
+                                 f"{int((got != masks[ti]).sum())} pixels")
+        log(f"interactive: {len(frames)} written masks equal the direct "
+            f"forward's pixel for pixel")
+        del sam_pt, cfg
+        torch.cuda.empty_cache()
+
+        cfg = resolve_interpolations(compose(CONFIG_DIR, "vos_eval_root", [
+            *base, f"output={root}/out1",
+            "input_only_one_gt_mask_point=true"]))
+        sam_pt = instantiate(cfg["model"])
+        bias_for_a_live_run(sam_pt)
+        cfg["model"] = sam_pt
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = evaluate(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        one = dict(fa.LAUNCHES)
+        expected = one_point_schedule(sam_pt, t, 2)
+        jf = results.get("J&F-Mean")
+        ok = one == expected and jf is not None and np.isfinite(jf)
+        log(f"one point: launches {one} expected {expected}; J&F {jf}, "
+            f"{wall:.3f} s on {card} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("one point: launches or J&F wrong")
+        del sam_pt, cfg
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # JSON row -> (source, the TPU function it replaces)
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -1195,11 +1702,15 @@ VIT_B_ROWS = ("window", "global")
 
 
 def kernel_json(report: dict, launches: dict, route_launches: dict,
-                default_launches: dict) -> list:
+                default_launches: dict, crop_launches: dict,
+                interactive_launches: dict) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
-    ViT-B's shapes (`_vit_b`) with the default model's launches."""
+    ViT-B's shapes (`_vit_b`) with the default model's launches; then K2
+    on the cropped grid with the crop phase's launches and K3
+    image->token at the interactive capacity with the interactive run's
+    image->token launches (2 of the 5 K3 calls of a decoder pass)."""
     kernels = []
     for key, (source, replaces) in KERNEL_SOURCES.items():
         r = report[key]
@@ -1229,6 +1740,17 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
         kernels.append({"name": f"{key}_attention_vit_b", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": default_launches[key],
+                        "max_abs_err": r["max_abs_err"],
+                        **{f: r[f] for f in TIMES}})
+    for name, case, key, count in (
+            ("global_attention_crop", "global_crop", "global",
+             crop_launches["global"]),
+            ("image_to_token_interactive", "cross_interactive", "cross",
+             interactive_launches["cross"] * 2 // 5)):
+        source, replaces = KERNEL_SOURCES[key]
+        r = report[case]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": count,
                         "max_abs_err": r["max_abs_err"],
                         **{f: r[f] for f in TIMES}})
     return kernels
@@ -1313,6 +1835,9 @@ def main() -> int:
     if profiling:
         profile_phase(sam_pt, videos[-1], device_fuse_index_masks, card)
     query_points_phase(sam_pt, fa, device_fuse_index_masks)
+    patch_filter_phase(sam_pt, fa, device_fuse_index_masks, card)
+    crop_launches = crop_phase(sam_pt, fa, device_fuse_index_masks, card,
+                               profiling)
     del sam_pt
     torch.cuda.empty_cache()
     route_launches = route_phase(fa, device)
@@ -1322,9 +1847,11 @@ def main() -> int:
                                            profiling)
     tracker_phase(device, card)
     cli_phase(fa, card)
+    interactive_launches = interactive_phase(fa, card)
 
-    log(json.dumps({"kernels": kernel_json(report, launches, route_launches,
-                                           default_launches)}))
+    log(json.dumps({"kernels": kernel_json(
+        report, launches, route_launches, default_launches, crop_launches,
+        interactive_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,19 +20,23 @@ def build_predictor(variant: str = "vit_b", checkpoint: Optional[str] = None,
                     dtype: str = "bfloat16", image_size: int = 1024,
                     allow_random_init: bool = False, hq: bool = False,
                     hq_token_only: bool = False, seed: int = 0,
+                    crop_pad_tokens: bool = False,
                     device: Union[str, torch.device] = "cuda"
                     ) -> SamPredictor:
     """A SamPredictor for a ViT variant (`vit_b`, `vit_l`, `vit_h`) in
     `dtype` on `device`: the public `segment_anything` checkpoint loaded as
     it is, or, where the file is missing and `allow_random_init` is set,
     N(0, 0.02^2) weights from a generator on `device` seeded with `seed`.
-    A missing file raises FileNotFoundError otherwise."""
+    A missing file raises FileNotFoundError otherwise. `crop_pad_tokens`
+    runs the encoder on the tokens that cover the frame only (opt-in; it
+    deviates from the reference)."""
     if hq or hq_token_only:
         raise NotImplementedError("the HQ-SAM decoder is not ported yet")
     if variant not in VIT_VARIANTS:
         raise NotImplementedError(
             f"SAM variant {variant!r} is not ported (TinyViT is not yet)")
-    model = Sam(variant, image_size=image_size)
+    model = Sam(variant, image_size=image_size,
+                crop_pad_tokens=crop_pad_tokens)
     load_or_randomize_(model, checkpoint, allow_random_init=allow_random_init,
                        seed=seed, device=device)
     return SamPredictor(model.to(DTYPES[dtype]).eval().requires_grad_(False))

@@ -19,6 +19,11 @@ Semantics kept from the JAX package:
     (`ops/flash_attention.py`), at the native head dim (80 at ViT-H: no
     padding to 128). Smaller grids take the plain path. An `Attention`
     built on its own runs K4 from 1024 tokens.
+  - Pad-token cropping (opt-in, `valid_hw`): the transformer runs only on
+    the token rows and columns that cover the resized frame (window spans
+    over real windows only, global blocks over the cropped grid with
+    center-sliced rel-pos tables), and the embedding's pad region is
+    zero-filled. It deviates from the reference, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -75,11 +80,16 @@ class PatchEmbed(nn.Module):
         return conv_nhwc(self.proj, x.to(self.proj.weight.dtype))
 
 
-def rel_pos_table(rel_pos: torch.Tensor, q_size: int,
-                  k_size: int) -> torch.Tensor:
+def rel_pos_table(rel_pos: torch.Tensor, q_size: int, k_size: int,
+                  cropped: bool = False) -> torch.Tensor:
     """Resolve a rel-pos parameter [L, C] to the table [q_size, k_size, C]
-    (linearly resized first when L != 2 * max(q, k) - 1)."""
+    (linearly resized first when L != 2 * max(q, k) - 1). `cropped`: the
+    grid is a crop of the one the table was sized for, so the table's
+    center (the same relative distances) is taken instead of a resize."""
     max_rel_dist = 2 * max(q_size, k_size) - 1
+    if cropped and rel_pos.shape[0] > max_rel_dist:
+        center, half = rel_pos.shape[0] // 2, max_rel_dist // 2
+        rel_pos = rel_pos[center - half:center + half + 1]
     if rel_pos.shape[0] != max_rel_dist:
         table = resize_bilinear(rel_pos[None, :, :, None],
                                 (max_rel_dist, rel_pos.shape[1]))
@@ -98,7 +108,9 @@ class Attention(nn.Module):
     `raw_qkv` says which route the weights take, as the JAX module's
     `padded_head_dim` / `fused_window` do (`image_encoder.py:283-376`):
       - True (the encoder's blocks at grid >= 32): the kernels read the
-        fused qkv projection, K1 for square windows, K2 from 1024 tokens;
+        fused qkv projection, K2 from 1024 tokens (any kh x kw), K1 for
+        square grids it takes (up to 208 tokens), the plain path below for
+        other grids (cropped global grids under 1024 tokens);
       - False (the module built on its own, the default): split q/k/v, K4
         from 1024 tokens, the unfused plain path below.
     The JAX module sends a default-built module whose head dim is a multiple
@@ -120,16 +132,17 @@ class Attention(nn.Module):
         self.rel_pos_w = nn.Parameter(
             torch.zeros(2 * input_size[1] - 1, self.head_dim))
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                cropped: bool = False) -> torch.Tensor:
         h, w = hw
         heads = self.num_heads
         qkv = self.qkv(x)  # [B, N, 3*H*D], last axis laid out (3, H, D)
-        rh = rel_pos_table(self.rel_pos_h, h, h).to(qkv.dtype)
-        rw = rel_pos_table(self.rel_pos_w, w, w).to(qkv.dtype)
+        rh = rel_pos_table(self.rel_pos_h, h, h, cropped).to(qkv.dtype)
+        rw = rel_pos_table(self.rel_pos_w, w, w, cropped).to(qkv.dtype)
         if self.raw_qkv and h * w >= 1024:
             out = fa.global_attention(qkv, rh, rw, scale=self.scale, kh=h,
                                       kw=w, heads=heads)
-        elif self.raw_qkv:
+        elif self.raw_qkv and h == w and h * w <= fa.WINDOW_MAX_TOKENS:
             out = fa.window_attention(qkv, rh, rw, scale=self.scale,
                                       heads=heads)
         else:
@@ -187,11 +200,12 @@ class Block(nn.Module):
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                cropped: bool = False) -> torch.Tensor:
         y = self.norm1(x)
         if pad_mask is not None:
             y = y * pad_mask
-        x = x + self.attn(y, hw)
+        x = x + self.attn(y, hw, cropped)
         return x + self.mlp(self.norm2(x))
 
 
@@ -264,28 +278,40 @@ class ImageEncoderViT(nn.Module):
             LayerNorm2d(out_chans),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                valid_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """`valid_hw`: the (rows, cols) of tokens that cover the frame, for
+        pad-token cropping; None runs the whole grid."""
         x = self.patch_embed(x)
         x = x + self.pos_embed.to(x.dtype)
-        b, g, _, c = x.shape
+        grid = x.shape[1]
+        cropped = valid_hw is not None and tuple(valid_hw) != (grid, grid)
+        if cropped:
+            x = x[:, :valid_hw[0], :valid_hw[1]]
+        b, gh, gw, c = x.shape
         win = self.window_size
         i, depth = 0, len(self.blocks)
         while i < depth:
             if i in self.global_attn_indexes:
-                x = self.blocks[i](x.reshape(b, g * g, c), (g, g))
-                x = x.reshape(b, g, g, c)
+                x = self.blocks[i](x.reshape(b, gh * gw, c), (gh, gw),
+                                   cropped=cropped)
+                x = x.reshape(b, gh, gw, c)
                 i += 1
                 continue
             end = i
             while end < depth and end not in self.global_attn_indexes:
                 end += 1
             xw, padded = window_partition(x, win)
-            mask = window_pad_mask(b, (g, g), padded, win, x.device, x.dtype)
+            mask = window_pad_mask(b, (gh, gw), padded, win, x.device,
+                                   x.dtype)
             for j in range(i, end):
                 xw = self.blocks[j](xw, (win, win), mask)
-            x = window_unpartition(xw, win, padded, (g, g))
+            x = window_unpartition(xw, win, padded, (gh, gw))
             i = end
         x = conv_nhwc(self.neck[0], x)
         x = self.neck[1](x)
         x = conv_nhwc(self.neck[2], x)
-        return self.neck[3](x)
+        x = self.neck[3](x)
+        if cropped:  # the decoder reads the whole grid: zeros off the frame
+            x = F.pad(x, (0, 0, 0, grid - gw, 0, grid - gh))
+        return x

@@ -2,8 +2,10 @@
 
 `encode_frames` embeds a batch of frames (the antialiased longest-side
 resize runs on the device); `decode` decodes a batch of (embedding,
-prompt-set) pairs with label -1 padding. Callers work in original image
-pixels; `scale_coords` maps them to model-input coordinates.
+prompt-set) pairs with label -1 padding, in model-input coordinates;
+`predict` does the same from original image pixels and picks SAM's single
+or multimask output tokens. `scale_coords` maps original pixels to
+model-input coordinates.
 """
 from __future__ import annotations
 
@@ -52,6 +54,26 @@ class SamPredictor:
         """Model-space prompts -> (logits [B, T, 4g, 4g], iou [B, 4])."""
         return self.model.decode_masks(embeddings, points, labels, mask_input,
                                        mask_valid, only_token0=only_token0)
+
+    @torch.no_grad()
+    def predict(self, embeddings: torch.Tensor, points, labels,
+                original_hw: Tuple[int, int],
+                mask_input: Optional[torch.Tensor] = None,
+                mask_valid: Optional[torch.Tensor] = None,
+                multimask_output: bool = False):
+        """Batched predict from original-pixel prompts: embeddings
+        [B, g, g, 256], points [B, N, 2] (x, y), labels [B, N] (-1 = pad).
+        Returns (low-res logits [B, K, 4g, 4g], iou [B, K], the token
+        slice) with K = 3 (tokens 1-3) if `multimask_output`, else 1
+        (token 0)."""
+        device = embeddings.device
+        pts = self.scale_coords(
+            torch.as_tensor(points, dtype=torch.float32, device=device),
+            original_hw)
+        lbl = torch.as_tensor(labels, device=device).long()
+        masks, iou = self.decode(embeddings, pts, lbl, mask_input, mask_valid)
+        tokens = slice(1, 4) if multimask_output else slice(0, 1)
+        return masks[:, tokens], iou[:, tokens], tokens
 
     def upscale_logits(self, low_res_logits: torch.Tensor,
                        original_hw: Tuple[int, int]) -> torch.Tensor:

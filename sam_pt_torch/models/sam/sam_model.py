@@ -21,14 +21,18 @@ class Sam(nn.Module):
 
     `encoder` is a ViT variant name (`vit_b`, `vit_l`, `vit_h`) or a dict of
     `ImageEncoderViT` arguments. The working dtype is the parameters' dtype
-    (`.to(torch.bfloat16)` for the bf16 path).
+    (`.to(torch.bfloat16)` for the bf16 path). `crop_pad_tokens` (opt-in,
+    off by default as in the JAX package): the encoder runs only on the
+    tokens that cover the resized frame, and the embedding is zero off it.
     """
 
     mask_threshold = 0.0
 
     def __init__(self, encoder="vit_h", image_size: int = 1024,
-                 prompt_embed_dim: int = 256, mask_in_chans: int = 16):
+                 prompt_embed_dim: int = 256, mask_in_chans: int = 16,
+                 crop_pad_tokens: bool = False):
         super().__init__()
+        self.crop_pad_tokens = crop_pad_tokens
         cfg = VIT_VARIANTS[encoder] if isinstance(encoder, str) else encoder
         grid = image_size // 16
         self.image_size = image_size
@@ -61,7 +65,12 @@ class Sam(nn.Module):
 
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
         """[B, h, w, 3] float 0-255 -> embeddings [B, g, g, 256]."""
-        return self.image_encoder(self.preprocess(images))
+        valid_hw = None
+        if self.crop_pad_tokens:
+            patch = self.image_encoder.patch_embed.proj.kernel_size[0]
+            valid_hw = (-(-images.shape[1] // patch),
+                        -(-images.shape[2] // patch))
+        return self.image_encoder(self.preprocess(images), valid_hw)
 
     def decode_masks(self, image_embeddings: torch.Tensor,
                      points: torch.Tensor, labels: torch.Tensor,

@@ -17,6 +17,11 @@ into a query mask, as the JAX package does); then
     object's query frame. The data-dependent control flow runs on the
     host; tracking and decoding run on the device.
 
+With `use_patch_matching_filtering`, the LAB patch similarities of every
+(frame, point) pair are computed on the device in one pass and the
+cascade's bookkeeping runs on the host; the prompts are then built on the
+host, as on the JAX package's host path.
+
 The box-refinement passes run unconditionally: the JAX package stops its
 loop at the exact fixed point, which gives the same output, but on a GPU
 that test costs a host sync per pass.
@@ -28,7 +33,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.color import rgb_to_lab
 from ..ops.resize import resize_planes
+from ..ops.sampling import patch_sample
 from ..utils.query_points import (
     extract_corner_points,
     extract_kmedoid_points,
@@ -69,6 +76,23 @@ def build_prompts(traj: torch.Tensor, vis: torch.Tensor, n_pos: int,
     return points, labels
 
 
+def patch_similarities(images: torch.Tensor, flat_traj: torch.Tensor,
+                       query_points: torch.Tensor,
+                       patch_size: int) -> torch.Tensor:
+    """images [T, H, W, 3] uint8, flat_traj [T, N, 2], query_points [N, 3]
+    (t, x, y) -> similarities [T, N] float32, on the images' device: the
+    LAB patch around each point's position on every frame against its patch
+    on its own query frame, exp(-||diff|| / (2 patch_size^2)). As the
+    reference does (sam_pt.py:645), the frames are read as BGR."""
+    lab = rgb_to_lab(images.flip(-1))
+    patches = patch_sample(lab, flat_traj, patch_size)  # [T, N, K*K, 3]
+    frames = query_points[:, 0].long()
+    templates = patch_sample(lab[frames], query_points[:, None, 1:],
+                             patch_size)[:, 0]  # [N, K*K, 3]
+    diff = (patches - templates[None]).flatten(2)
+    return torch.exp(-diff.norm(dim=-1) / (2 * patch_size ** 2))
+
+
 class SamPt:
     def __init__(
         self,
@@ -99,9 +123,6 @@ class SamPt:
         mesh=None,
         logits_dtype: torch.dtype = torch.float16,
     ):
-        if use_patch_matching_filtering:
-            raise NotImplementedError(
-                "patch-matching filtering is not ported yet")
         if data_parallel or mesh is not None:
             raise NotImplementedError(
                 "data parallelism over several devices is not ported yet")
@@ -120,7 +141,6 @@ class SamPt:
         self.max_other_objects_positive_points = max_other_objects_positive_points
         self.point_tracker_mask_batch_size = point_tracker_mask_batch_size
         self.iterative_refinement_iterations = iterative_refinement_iterations
-        # Read by patch-matching filtering, which is not ported yet.
         self.use_patch_matching_filtering = use_patch_matching_filtering
         self.patch_size = patch_size
         self.patch_similarity_threshold = patch_similarity_threshold
@@ -266,7 +286,8 @@ class SamPt:
         return torch.cat(chunks, dim=0)
 
     def _track_points_device(self, images_dev, query_points, hw):
-        """Track in mask batches; mark points near the border OUTSIDE_FRAME.
+        """Track in mask batches; with `use_patch_matching_filtering`, the
+        patch filter; then mark points near the border OUTSIDE_FRAME.
         Returns trajectories [T, M, P, 2], visibilities [T, M, P]."""
         h, w = hw
         t = images_dev.shape[0]
@@ -282,6 +303,9 @@ class SamPt:
             viss.append(out_v[0].reshape(t, nb, p))
         trajectories = torch.cat(trajs, dim=1).float()
         visibilities = torch.cat(viss, dim=1).float()
+        if self.use_patch_matching_filtering:
+            visibilities = self._patch_filter(images_dev, query_points,
+                                              trajectories, visibilities)
         x, y = trajectories[..., 0], trajectories[..., 1]
         oob = (x / w < 0.01) | (x / w > 0.99) | (y / h < 0.01) | (y / h > 0.99)
         visibilities = torch.where(
@@ -290,12 +314,48 @@ class SamPt:
             visibilities)
         return trajectories, visibilities
 
+    def _patch_filter(self, images_dev, query_points, trajectories,
+                      visibilities):
+        """LAB patch-similarity filtering (JAX `SamPt._patch_filter`): the
+        similarities of every (frame, point) pair in one pass on the device;
+        the cascade's bookkeeping ([T, M*P]) on the host. A visible point
+        whose patch is not similar to its query-frame patch becomes
+        PATCH_NON_SIMILAR; every frame after the first such frame past the
+        query frame, and before the last such frame ahead of it, becomes
+        REJECTED_AFTER_PATCH_WAS_NON_SIMILAR."""
+        t, m, p, _ = trajectories.shape
+        qp = query_points.reshape(m * p, 3)
+        sims = patch_similarities(
+            images_dev, trajectories.reshape(t, m * p, 2),
+            torch.from_numpy(np.ascontiguousarray(qp)).to(images_dev.device),
+            self.patch_size).cpu().numpy()
+        similar = sims > self.patch_similarity_threshold
+        vis = visibilities.reshape(t, m * p).cpu().numpy().copy()
+        non_similar = float(PointVisibilityType.PATCH_NON_SIMILAR)
+        vis[(vis == 1) & ~similar] = non_similar
+
+        qts = qp[:, 0].astype(np.int64)
+        tgrid = np.arange(t)[:, None]
+        bad = vis == non_similar
+        after = bad & (tgrid > qts[None, :])
+        first_after = np.where(after.any(0), np.argmax(after, axis=0), t + 1)
+        before = bad & (tgrid < qts[None, :])
+        last_before = np.where(before.any(0),
+                               t - 1 - np.argmax(before[::-1], axis=0), -1)
+        reject = (tgrid > first_after[None, :]) | (tgrid < last_before[None, :])
+        vis = np.where(reject, float(
+            PointVisibilityType.REJECTED_AFTER_PATCH_WAS_NON_SIMILAR), vis)
+        return torch.from_numpy(vis.reshape(t, m, p).astype(np.float32)).to(
+            visibilities.device)
+
     def _apply_sam_device(self, hw, trajectories, visibilities, embeddings):
         """Prompts, decode chain, IoU gating and scores for every (frame,
         mask) pair of device trajectories. Prompts are built on the device,
-        or on the host where a cap on other objects' points draws from
+        or on the host, as the JAX package's host path does, with patch
+        filtering or where a cap on other objects' points draws from
         `self.rng`. Returns (logits [M, T, h, w], scores_per_frame [T, M])."""
-        if (self.add_other_objects_positive_points_as_negative_points
+        if self.use_patch_matching_filtering or (
+                self.add_other_objects_positive_points_as_negative_points
                 and self.max_other_objects_positive_points is not None):
             points, labels = (
                 torch.from_numpy(a).to(trajectories.device)
@@ -330,9 +390,11 @@ class SamPt:
         return logits, scores_per_frame
 
     def _decode_all_pairs(self, embeddings, emb_flat, pts_flat, lbl_flat,
-                          hw):
-        """Chunked decode chain over all pairs; the last chunk is padded to
-        the full chunk size with copies of its first pair."""
+                          hw, chain=None):
+        """Chunked decode chain (`self._chain`, or `chain`) over all pairs;
+        the last chunk is padded to the full chunk size with copies of its
+        first pair."""
+        chain = chain or self._chain
         b = pts_flat.shape[0]
         chunk = min(self.sam_decode_chunk, b)
         device = pts_flat.device
@@ -342,8 +404,8 @@ class SamPt:
             nb = stop - i
             idx = torch.cat([torch.arange(i, stop, device=device),
                              torch.full((chunk - nb,), i, device=device)])
-            up, iou = self._chain(embeddings[emb_flat[idx]], pts_flat[idx],
-                                  lbl_flat[idx], hw)
+            up, iou = chain(embeddings[emb_flat[idx]], pts_flat[idx],
+                            lbl_flat[idx], hw)
             ups.append(up[:nb])
             ious.append(iou[:nb])
         return torch.cat(ups, dim=0), torch.cat(ious, dim=0)

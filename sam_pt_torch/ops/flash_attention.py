@@ -28,6 +28,8 @@ from typing import Optional
 import torch
 
 LAUNCHES = {"window": 0, "global": 0, "cross": 0, "relpos": 0}
+# The most tokens the window body (K1, and K4 below 1024 tokens) takes.
+WINDOW_MAX_TOKENS = 208
 
 
 def reset_launch_counts() -> None:
@@ -113,8 +115,8 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor, *,
     bw, n, chans = qkv.shape
     d = chans // (3 * heads)
     win = bias.shape[-1] // 2
-    if (chans != 3 * heads * d or win * win != n or n > 208 or d % 16
-            or d > 128 or bias.shape != (bw, n, heads, 2 * win)):
+    if (chans != 3 * heads * d or win * win != n or n > WINDOW_MAX_TOKENS
+            or d % 16 or d > 128 or bias.shape != (bw, n, heads, 2 * win)):
         raise ValueError(
             f"window_attention: unsupported shapes {tuple(qkv.shape)}, "
             f"{tuple(bias.shape)}")

@@ -108,3 +108,32 @@ def separable_neighborhood_sample(plane: torch.Tensor, cx: torch.Tensor,
     wx = _hat_weights(cx[..., None] + dx, w, zero_pad)  # [..., Kx, W]
     tmp = torch.matmul(wy, plane)                      # [..., Ky, W]
     return torch.matmul(tmp, wx.transpose(-1, -2))     # [..., Ky, Kx]
+
+
+def patch_sample(img: torch.Tensor, points_xy: torch.Tensor,
+                 patch_size: int) -> torch.Tensor:
+    """Square patches around pixel coordinates, bilinear, zero padding.
+
+    img [..., H, W, C]; points_xy [..., N, 2] (x, y) with the same leading
+    dims. Returns [..., N, K * K, C] with K = 2 * (patch_size // 2) + 1,
+    the patch laid out (dy, dx) row-major: entry dy * K + dx samples the
+    pixel coordinate (x + dx - K // 2, y + dy - K // 2), as the reference's
+    grid_sample(align_corners=False) on (xy + offset + 0.5) does; taps
+    outside the image read zero.
+    """
+    half = patch_size // 2
+    k = 2 * half + 1
+    lead = img.shape[:-3]
+    h, w, c = img.shape[-3:]
+    n = points_xy.shape[-2]
+    offs = torch.arange(-half, half + 1, dtype=torch.float32,
+                        device=img.device)
+    pts = points_xy.reshape(-1, n, 2).float()
+    xs = (pts[:, :, None, None, 0] + offs[None, None, None, :]).expand(
+        -1, -1, k, k)
+    ys = (pts[:, :, None, None, 1] + offs[None, None, :, None]).expand(
+        -1, -1, k, k)
+    out = bilinear_sample(img.reshape(-1, h, w, c).float(),
+                          xs.reshape(xs.shape[0], -1),
+                          ys.reshape(ys.shape[0], -1), pad_mode="zeros")
+    return out.reshape(*lead, n, k * k, c)

@@ -3,7 +3,8 @@
 the tiny SAM (ViT of width 32, depth 2, 64-pixel input) and PIPS at width
 16 (stride 4, 4-frame windows, 2 iterations), N(0, 0.02^2) weights from a
 generator seeded with `seed`. `configs/model/sam_pt_tiny_test.yaml` names
-it, so that `model=sam_pt_tiny_test` runs the CLI in seconds on the CPU.
+it, so that `model=sam_pt_tiny_test` runs the CLI in seconds on the CPU
+(with `+model.interactive=true`, as a `SamPtInteractive`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from ..models.sam.predictor import SamPredictor
 from ..models.sam.sam_model import Sam
 from ..models.sam_pt import SamPt
+from ..models.sam_pt_interactive import SamPtInteractive
 from ..models.tracker.pips.model import Pips
 from ..models.tracker.pips.tracker import PipsPointTracker
 from .checkpoint import randomize_
@@ -24,7 +26,7 @@ TINY_VIT = dict(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
 
 def build_tiny_sam_pt(seed: int = 0,
                       device: Union[str, torch.device] = "cuda",
-                      **settings) -> SamPt:
+                      interactive: bool = False, **settings) -> SamPt:
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     sam = randomize_(Sam(TINY_VIT, image_size=64).to(device), generator)
@@ -45,6 +47,7 @@ def build_tiny_sam_pt(seed: int = 0,
         sam_encode_chunk=4,
     )
     defaults.update(settings)
-    return SamPt(point_tracker=tracker,
-                 sam_predictor=SamPredictor(sam.eval().requires_grad_(False)),
-                 **defaults)
+    cls = SamPtInteractive if interactive else SamPt
+    return cls(point_tracker=tracker,
+               sam_predictor=SamPredictor(sam.eval().requires_grad_(False)),
+               **defaults)

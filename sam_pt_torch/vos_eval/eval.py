@@ -91,6 +91,29 @@ def build_dataset(cfg):
     raise NotImplementedError(dataset)
 
 
+def one_point_query_masks(model, images, query_masks, gt_ti_list):
+    """SAM masks from one k-medoids point per object, each decoded on its
+    query frame (reference :238-257). The point is drawn, as in the JAX
+    harness, from a generator that is not seeded."""
+    from ..utils.query_points import extract_kmedoid_points
+
+    out = []
+    predictor = model.sam_predictor
+    h, w = images.shape[1:3]
+    for mi, (mask, ti) in enumerate(zip(query_masks, gt_ti_list)):
+        pt = extract_kmedoid_points(mask, 1)
+        frame = torch.from_numpy(images[int(ti)][None]).to(model.device)
+        emb = predictor.encode_frames(frame, (h, w))
+        low, iou, _ = predictor.predict(emb, pt[None], np.ones((1, 1)),
+                                        (h, w))
+        logits = predictor.upscale_logits(low[:, 0], (h, w))
+        m = (logits[0] > 0).float().cpu().numpy()
+        print(f"[One GT Point Only] Mask {mi}, t={ti}, "
+              f"IoU {float(iou[0, 0]) * 100:6.2f}")
+        out.append(m)
+    return np.stack(out)
+
+
 def softmax_fuse(logits: np.ndarray) -> np.ndarray:
     """[T, 1+M, H, W] logits (channel 0 = zero background) -> probs."""
     x = logits - logits.max(axis=1, keepdims=True)
@@ -246,20 +269,7 @@ class _PendingVideo(NamedTuple):
         return masks[..., ::-1] if self.flip else masks
 
 
-# Options of the JAX harness that need the predictor's single-image
-# `predict` and `SamPtInteractive`, which are not ported yet.
-NOT_PORTED = ("input_only_one_gt_mask_point",
-              "simulate_interactive_point_correction")
-
-
 def evaluate(cfg) -> Dict:
-    for key in NOT_PORTED:
-        if cfg.get(key, False):
-            raise NotImplementedError(
-                f"{key} is not ported yet: it needs the predictor's "
-                f"single-image predict and SamPtInteractive (ROADMAP.md "
-                f"section 1, item 4)")
-
     seed_all(cfg.get("seed", 72))
 
     if cfg.get("output_timestamped", False):
@@ -293,6 +303,11 @@ def evaluate(cfg) -> Dict:
     max_frames = cfg.get("max_frames")
     vid_ids = cfg.get("vid_ids")
     masks_batch_size = cfg.get("masks_batch_size", 100)
+    interactive = cfg.get("simulate_interactive_point_correction", False)
+    if interactive:
+        # SamPtInteractive simulates one object at a time, and the
+        # per-batch gt_masks slice below is aligned only at batch size 1
+        masks_batch_size = 1
     save_all = cfg.get("save_all", False)
 
     total_process_time = 0.0
@@ -354,6 +369,7 @@ def evaluate(cfg) -> Dict:
         gt_ti_list: List[int] = []
         gt_mask_list: List[np.ndarray] = []
         gt_labels_list: List[int] = []
+        all_gt_masks: List[np.ndarray] = []  # per-frame one-hot (interactive)
 
         for ti, data in enumerate(vid_reader):
             if max_frames is not None and ti >= max_frames:
@@ -374,9 +390,12 @@ def evaluate(cfg) -> Dict:
                     msk = None
 
             if msk is not None:
-                onehot, new_mapped = mapper.convert_mask(msk)
+                onehot, new_mapped = mapper.convert_mask(
+                    msk, old_labels_allowed=interactive)
                 if info["need_resize"]:
                     onehot = vid_reader.resize_mask(onehot)
+                if interactive:
+                    all_gt_masks.append(onehot)
                 inv = {v: k for k, v in mapper.remappings.items()}
                 for l_remapped in new_mapped:
                     l_original = inv[l_remapped]
@@ -400,6 +419,12 @@ def evaluate(cfg) -> Dict:
         query_masks = np.stack(gt_mask_list)
         query_ts = np.asarray(gt_ti_list, np.float32)
         n_masks = query_masks.shape[0]
+
+        if cfg.get("input_only_one_gt_mask_point", False):
+            # SAM masks from ONE k-medoids point per object in place of the
+            # ground-truth query masks (reference vos_eval/eval.py:238-257)
+            query_masks = one_point_query_masks(model, images, query_masks,
+                                                gt_ti_list)
 
         viz_this = (
             cfg.get("visualize_results", False)
@@ -434,6 +459,8 @@ def evaluate(cfg) -> Dict:
                 "query_point_timestep": query_ts[i : i + masks_batch_size],
                 "keep_logits_on_device": device_fusion,
             }
+            if interactive and all_gt_masks:
+                video["gt_masks"] = [m[i : i + 1] for m in all_gt_masks]
             outputs = evaluator.evaluate_video(video)
             if device_fusion:
                 device_parts.append(outputs["logits"])  # [m_i, T, h, w]

@@ -1,5 +1,7 @@
 """Native DAVIS J (region IoU) and F (boundary) metrics (a copy of
-`sam_pt_tpu/vos_eval/metrics.py`).
+`sam_pt_tpu/vos_eval/metrics.py`; F's boundary matching reads a distance
+transform over the boundaries' box instead of dilating whole frames,
+which gives the same counts in less time).
 
 Re-implements the `davis2017` evaluation package the reference wraps
 (sam_pt/vos_eval/davis2017eval.py:24; SURVEY.md §2.9 lists it as a package to
@@ -59,11 +61,19 @@ def _seg2bmap(seg: np.ndarray) -> np.ndarray:
     return b
 
 
-def _disk(radius: int) -> np.ndarray:
-    if radius < 1:
-        return np.ones((1, 1), bool)
-    y, x = np.ogrid[-radius : radius + 1, -radius : radius + 1]
-    return x * x + y * y <= radius * radius
+def _matched(bmap: np.ndarray, other: np.ndarray, radius: int) -> int:
+    """How many set pixels of `bmap` lie within `radius` (Euclidean,
+    inclusive) of a set pixel of `other`: those of `bmap` inside `other`
+    dilated by the disk x^2 + y^2 <= radius^2, read from a distance
+    transform over the box that holds both maps' pixels (the same pixels
+    as `ndimage.binary_dilation` with the disk, in less time)."""
+    if not bmap.any() or not other.any():
+        return 0
+    rows = np.nonzero((bmap | other).any(axis=1))[0]
+    cols = np.nonzero((bmap | other).any(axis=0))[0]
+    box = (slice(rows[0], rows[-1] + 1), slice(cols[0], cols[-1] + 1))
+    near = ndimage.distance_transform_edt(~other[box]) <= max(radius, 0)
+    return int((bmap[box] & near).sum())
 
 
 def f_measure(
@@ -75,8 +85,8 @@ def f_measure(
     """DAVIS boundary F-measure for one frame.
 
     Boundary pixels of prediction and GT are matched within a tolerance of
-    bound_th * image diagonal via dilation; F = harmonic mean of boundary
-    precision and recall.
+    bound_th * image diagonal (as dilating the other boundary by a disk of
+    that radius does); F = harmonic mean of boundary precision and recall.
     """
     if void_pixels is not None:
         v = void_pixels.astype(bool)
@@ -91,12 +101,8 @@ def f_measure(
         if bound_th >= 1
         else int(np.ceil(bound_th * np.linalg.norm(foreground_mask.shape)))
     )
-    selem = _disk(int(bound_pix))
-    fg_dil = ndimage.binary_dilation(fg_boundary, selem)
-    gt_dil = ndimage.binary_dilation(gt_boundary, selem)
-
-    gt_match = gt_boundary & fg_dil
-    fg_match = fg_boundary & gt_dil
+    n_fg_match = _matched(fg_boundary, gt_boundary, int(bound_pix))
+    n_gt_match = _matched(gt_boundary, fg_boundary, int(bound_pix))
 
     n_fg = fg_boundary.sum()
     n_gt = gt_boundary.sum()
@@ -108,8 +114,8 @@ def f_measure(
     if n_fg == 0 and n_gt == 0:
         return 1.0
 
-    precision = fg_match.sum() / n_fg
-    recall = gt_match.sum() / n_gt
+    precision = n_fg_match / n_fg
+    recall = n_gt_match / n_gt
     if precision + recall == 0:
         return 0.0
     return 2.0 * precision * recall / (precision + recall)

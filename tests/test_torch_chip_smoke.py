@@ -59,6 +59,18 @@ ROWS = {
                   _bytes(*[(1600, 196, 80)] * 3, *[(1600, 196, 14)] * 2,
                          (1600, 196, 80)),
                   19.67, 218.3, 0.0652, "bytes"),
+    # crop_pad_tokens at 480 x 854: 36 x 64 tokens of the 64 x 64 grid
+    "K2 crop": ((4 * 16, 2304, 2304, 80),
+                _bytes((4, 2304, 3840), (4, 2304, 16, 100), (4, 2304, 1280)),
+                108.72, 123.9, 0.1099, "operations"),
+    # 12 frames of the interactive phase, 325 token keys (5 output tokens,
+    # 317 prompt slots, 2 box corners, the pad), 42 of them valid; the
+    # operations count the valid keys
+    "K3 image->token interactive": (
+        (12 * 8, 4096, 42, 16),
+        _bytes((12, 4096, 128), (12, 325, 128), (12, 325, 128),
+               (12, 4096, 128), extra=12 * 325),
+        1.06, 27.2, 0.00811, "bytes"),
 }
 
 
@@ -140,7 +152,11 @@ def test_library_yardstick_computes_the_kernels_function(name):
 
 # kernel_phase's report: case -> the numbers of `chip_smoke.TIMES`.
 CASES = ("window", "global", "cross", "cross_masked", "cross_unmasked",
-         "relpos", "relpos_window", "window_vit_b", "global_vit_b")
+         "relpos", "relpos_window", "window_vit_b", "global_vit_b",
+         "global_crop", "cross_interactive")
+CROP_LAUNCHES = {"window": 168, "global": 24, "cross": 70, "relpos": 0}
+INTERACTIVE_LAUNCHES = {"window": 48, "global": 24, "cross": 15400,
+                        "relpos": 0}
 SECOND_CASE = {"cross": ("cross_masked", "_image_to_token"),
                "relpos": ("relpos_window", "_window")}
 # Cases whose error counts in a row without their times.
@@ -162,7 +178,8 @@ def test_kernel_json_rows_carry_both_timers(key):
     report = _report()
     launches = {"window": 420, "global": 60, "cross": 280, "relpos": 0}
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
-        report, launches, {"relpos": 1}, {"window": 48, "global": 24})}
+        report, launches, {"relpos": 1}, {"window": 48, "global": 24},
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES)}
     row = rows[f"{key}_attention"]
     assert {"name", "route", "source", "replaces", "launches",
             "max_abs_err"} <= set(row)
@@ -185,13 +202,71 @@ def test_kernel_json_vit_b_rows(key):
     report = _report()
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
-        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140})}
+        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES)}
     row = rows[f"{key}_attention_vit_b"]
     assert row["launches"] == {"window": 48, "global": 24}[key]
     assert (row["source"], row["replaces"]) == chip_smoke.KERNEL_SOURCES[key]
     assert row["max_abs_err"] == report[f"{key}_vit_b"]["max_abs_err"]
     for f in chip_smoke.TIMES:
         assert row[f] == report[f"{key}_vit_b"][f]
+
+
+@pytest.mark.parametrize("name,case,key,launches", [
+    ("global_attention_crop", "global_crop", "global", 24),
+    ("image_to_token_interactive", "cross_interactive", "cross", 6160)])
+def test_kernel_json_rows_of_this_slice(name, case, key, launches):
+    """K2 on the cropped grid with the crop phase's K2 launches, and K3
+    image->token at the interactive capacity with 2 of the interactive
+    run's 5 K3 launches a decoder pass, each with every key of the
+    contract."""
+    report = _report()
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
+        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES)}
+    row = rows[name]
+    assert row["launches"] == launches
+    assert (row["route"], row["source"], row["replaces"]) == (
+        "cuda", *chip_smoke.KERNEL_SOURCES[key])
+    assert row["max_abs_err"] == report[case]["max_abs_err"]
+    for f in chip_smoke.TIMES:
+        assert row[f] == report[case][f]
+
+
+def test_shapes_of_this_slice():
+    """The crop leaves 36 x 64 tokens of a 480 x 854 frame (resized to
+    576 x 1024) and 15 windows; the interactive prompt holds the default
+    model's 17 points and the 300 interactions of the default budget, so
+    a refinement pass's image->token call has 325 keys, laid out as
+    `Sam.decode_masks` masks them."""
+    assert chip_smoke.crop_grid() == (36, 64)
+    assert chip_smoke.window_count(36, 64) == 15
+    assert chip_smoke.interactive_capacity() == 317
+    assert chip_smoke.interactive_tokens() == 325
+    valid = chip_smoke.interactive_key_mask(2, "cpu")
+    assert valid.shape == (2, 325) and int(valid[0].sum()) == 42
+    assert valid[0, :40].all() and not valid[0, 40:322].any()
+    assert valid[0, 322:324].all() and not valid[0, 324]
+
+
+def test_interactive_and_one_point_schedules():
+    """K1/K2 per encode chunk; K3 5 per pass of each decode chain the
+    interactive model ran, and one pass per object's query frame on the
+    one-point run."""
+    from types import SimpleNamespace
+
+    encoder = SimpleNamespace(blocks=[None] * 12,
+                              global_attn_indexes=(2, 5, 8, 11))
+    sam_pt = SimpleNamespace(
+        sam_encode_chunk=4, sam_decode_chunk=32,
+        iterative_refinement_iterations=12, chain_calls=220,
+        sam_predictor=SimpleNamespace(model=SimpleNamespace(
+            image_encoder=encoder)))
+    assert chip_smoke.interactive_schedule(sam_pt, [12, 12]) == {
+        "window": 48, "global": 24, "cross": 15400, "relpos": 0}
+    assert chip_smoke.one_point_schedule(sam_pt, 12, 2) == {
+        "window": 40, "global": 20, "cross": 80, "relpos": 0}
 
 
 @pytest.mark.parametrize("variant,window,global_", [("vit_b", 8, 4),
@@ -253,3 +328,65 @@ def test_cli_tree_labels_and_boxes(tmp_path):
         assert palette == chip_smoke.CLI_PALETTE
     assert (tmp_path / "trainval" / "ImageSets" / "2017" / "val.txt"
             ).read_text().split() == names
+
+
+def _rehearsal(monkeypatch, frames=None):
+    """Stubs for a phase's run on the CPU at 48 x 80: no synchronisation,
+    no profiler device time, the schedules as the CPU's zero counts (the
+    plain paths launch no kernel)."""
+    zeros = {k: 0 for k in fa.LAUNCHES}
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "H", 48)
+    monkeypatch.setattr(chip_smoke, "W", 80)
+    for name in ("launch_schedule", "interactive_schedule",
+                 "one_point_schedule"):
+        monkeypatch.setattr(chip_smoke, name, lambda *a: dict(zeros))
+    monkeypatch.setattr(chip_smoke, "profiled_ms",
+                        lambda fn, calls=20: (fn(), 1.0)[1])
+    if frames:
+        monkeypatch.setattr(chip_smoke, "INTERACTIVE_FRAMES", frames)
+
+
+def test_patch_filter_and_crop_phases_rehearsed_on_the_cpu(monkeypatch,
+                                                           capsys):
+    """Phases 12 and 13 on the CPU with the tiny SamPt at the main path's
+    17 points: every kind of patch flag, the card-vs-CPU comparison (here
+    the CPU against itself), the crop's zero pad rows and its reference
+    check."""
+    from sam_pt_torch.utils.testing import build_tiny_sam_pt
+    from sam_pt_torch.vos_eval.eval import device_fuse_index_masks
+
+    _rehearsal(monkeypatch)
+    sam_pt = build_tiny_sam_pt(device="cpu", positive_points_per_mask=16,
+                               negative_points_per_mask=1,
+                               iterative_refinement_iterations=2)
+    chip_smoke.patch_filter_phase(sam_pt, fa, device_fuse_index_masks,
+                                  "the CPU")
+    launches = chip_smoke.crop_phase(sam_pt, fa, device_fuse_index_masks,
+                                     "the CPU")
+    out = capsys.readouterr().out
+    assert launches == {k: 0 for k in fa.LAUNCHES}
+    for line in ("flags equal on 17/17 points", "crop reference: encoder",
+                 "global blocks 12 of 16 tokens"):
+        assert line in out
+    assert "FAIL" not in out
+    assert not sam_pt.use_patch_matching_filtering
+    assert not sam_pt.sam_predictor.model.crop_pad_tokens
+
+
+def test_interactive_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 14 on the CPU at 4 frames with the tiny SamPt as a
+    SamPtInteractive: the histories and pickles, the budget, the written
+    masks against the direct forward pixel for pixel, then the one-point
+    run."""
+    _rehearsal(monkeypatch, frames=4)
+    chip_smoke.interactive_phase(
+        fa, "the CPU", model=("device=cpu", "model=sam_pt_tiny_test",
+                              "size=-1"),
+        interactive=("+model.interactive=true", "+model.online=true",
+                     "+model.interactions_max_per_frame=3"))
+    out = capsys.readouterr().out
+    for line in ("histories and pickles written", "4 written masks equal "
+                 "the direct forward's", "one point: launches"):
+        assert line in out
+    assert "FAIL" not in out

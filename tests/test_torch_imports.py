@@ -1,8 +1,9 @@
-"""The port imports torch and never jax (nor the JAX package); its kernel modules build nothing
-at import; `chip_smoke.py` refuses to run without a CUDA device. The
-port's CLI runs where jax, the JAX package, PyYAML, Pillow, pandas and
-cv2 cannot be imported (as on a machine that has only torch, numpy and
-scipy). CoTracker's tracker takes the keys of its YAML."""
+"""The port imports torch and never jax (nor the JAX package, nor
+scikit-learn); its kernel modules build nothing at import;
+`chip_smoke.py` refuses to run without a CUDA device. The port's CLI runs
+where jax, the JAX package, PyYAML, Pillow, pandas, cv2, scikit-learn and
+matplotlib cannot be imported (as on a machine that has only torch, numpy
+and scipy). CoTracker's tracker takes the keys of its YAML."""
 import os
 import subprocess
 import sys
@@ -20,6 +21,7 @@ SLICE_MODULES = [
     "sam_pt_torch.ops.posemb",
     "sam_pt_torch.ops.resize",
     "sam_pt_torch.ops.sampling",
+    "sam_pt_torch.ops.color",
     "sam_pt_torch.models.sam.image_encoder",
     "sam_pt_torch.models.sam.prompt_encoder",
     "sam_pt_torch.models.sam.mask_decoder",
@@ -37,6 +39,8 @@ SLICE_MODULES = [
     "sam_pt_torch.models.tracker.cotracker.model",
     "sam_pt_torch.models.tracker.cotracker.tracker",
     "sam_pt_torch.models.sam_pt",
+    "sam_pt_torch.models.sam_pt_interactive",
+    "sam_pt_torch.utils.dbscan",
     "sam_pt_torch.utils.checkpoint",
     "sam_pt_torch.utils.query_points",
     "sam_pt_torch.utils.util",
@@ -57,7 +61,8 @@ SLICE_MODULES = [
     "sam_pt_torch.vos_eval.data.test_datasets",
 ]
 # Importable here but not on every machine the port runs on.
-BLOCKED = ["jax", "flax", "sam_pt_tpu", "yaml", "PIL", "pandas", "cv2"]
+BLOCKED = ["jax", "flax", "sam_pt_tpu", "yaml", "PIL", "pandas", "cv2",
+           "sklearn", "matplotlib"]
 
 
 def _run(code: str, cwd: str = ROOT):
@@ -68,11 +73,12 @@ def _run(code: str, cwd: str = ROOT):
 
 def test_port_never_imports_jax():
     code = ("import importlib, sys\n"
-            f"for m in {SLICE_MODULES!r}:\n"
+            f"for m in {SLICE_MODULES + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'flax' not in sys.modules, 'flax was imported'\n"
             "assert 'sam_pt_tpu' not in sys.modules, 'JAX package imported'\n"
+            "assert 'sklearn' not in sys.modules, 'scikit-learn imported'\n"
             "import sam_pt_torch.ops._cuda as c\n"
             "assert c._LIB is None, 'kernels built at import'\n"
             "print('ok')\n")

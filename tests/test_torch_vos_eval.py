@@ -15,8 +15,9 @@ package's, on synthetic DAVIS, YouTube-VOS, MOSE and BDD100K trees.
 - MaskMapper, the dataset factories and the video reader: equal outputs.
 - The harness's options on the port alone, with its tiny SamPt:
   overlapping-mask dump, zip, resume-by-skip, `max_videos`/`vid_ids`,
-  the visualisations, and the two options that raise until
-  `SamPtInteractive` is ported; the printed tables against pandas'.
+  the visualisations, and the two options of `SamPtInteractive`'s slice
+  (held to the JAX CLI in test_torch_interactive_cli.py); the printed
+  tables against pandas'.
 """
 import csv
 import json
@@ -367,10 +368,23 @@ def test_subsets_and_resume_by_skip(davis, tmp_path):
 @pytest.mark.parametrize("option", ["input_only_one_gt_mask_point",
                                     "simulate_interactive_point_correction"])
 def test_options_that_need_sam_pt_interactive_raise(davis, tmp_path, option):
-    root, _ = davis
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_eval.evaluate(_cfg(TINY_MODEL, root, tmp_path / "o",
-                             **{option: True}))
+    """The two options raised NotImplementedError until the predictor's
+    `predict` and `SamPtInteractive` were ported; they now run on the
+    tiny SamPt (the interactive option on its SamPtInteractive) and score
+    both videos. test_torch_interactive_cli.py holds them to the JAX
+    CLI."""
+    root, names = davis
+    model = dict(TINY_MODEL)
+    if option == "simulate_interactive_point_correction":
+        model.update(interactive=True, online=True, interactions_max=8,
+                     output_root=str(tmp_path / "history"))
+    got = t_eval.evaluate(_cfg(model, root, tmp_path / "o",
+                               **{option: True}))
+    assert got["total_frames"] == 12 and 0.0 <= got["J&F-Mean"] <= 1.0
+    assert sorted(os.listdir(tmp_path / "o" / names[0])) == [
+        f"{t:05d}.png" for t in range(6)]
+    if option == "simulate_interactive_point_correction":
+        assert len(os.listdir(tmp_path / "history")) == 4  # 2 x 2 objects
 
 
 def test_softmax_fuse_matches_jax():

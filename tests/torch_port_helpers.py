@@ -309,3 +309,37 @@ def pips_pair():
     ttracker = TTracker(stride=4, allow_random_init=True, device="cpu")
     ttracker.model.load_state_dict(torch_sd(sd))
     return JTracker(params=convert_pips_state_dict(sd), stride=4), ttracker
+
+
+def tiny_interactive_pair(tracker: str = "cotracker", **settings
+                          ) -> Tuple[object, object]:
+    """(JAX SamPtInteractive, port SamPtInteractive) on the weights of
+    `tiny_sam_pt_pair(tracker)`, with TINY_SAM_PT_SETTINGS updated by
+    `settings` (SamPt's keys and SamPtInteractive's)."""
+    from sam_pt_torch.models.sam_pt_interactive import (
+        SamPtInteractive as TInteractive,
+    )
+    from sam_pt_tpu.models.sam_pt_interactive import (
+        SamPtInteractive as JInteractive,
+    )
+
+    jsampt, tsampt = tiny_sam_pt_pair(tracker)
+    settings = dict(TINY_SAM_PT_SETTINGS, **settings)
+    return (JInteractive(point_tracker=jsampt.point_tracker,
+                         sam_predictor=jsampt.sam_predictor, **settings),
+            TInteractive(point_tracker=tsampt.point_tracker,
+                         sam_predictor=tsampt.sam_predictor, **settings))
+
+
+def smooth_video(t: int = 6, h: int = 48, w: int = 64,
+                 seed: int = 16) -> np.ndarray:
+    """[t, h, w, 3] uint8: a smooth colour pattern moving 2 pixels a frame
+    to the right, plus noise of std 4, so that a point's patches stay
+    similar from frame to frame where it follows the pattern."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([128 + 100 * np.sin(xx / 7.0 + k) * np.cos(yy / 9.0 + k)
+                     for k in range(3)], -1)
+    frames = [np.roll(base, 2 * i, axis=1) + rng.normal(0, 4, (h, w, 3))
+              for i in range(t)]
+    return np.clip(np.stack(frames), 0, 255).astype(np.uint8)

@@ -91,15 +91,41 @@ Phases, in order; any failure exits non-zero before the verdict line:
      times, the written masks equal to a direct `forward` per object with
      the rng reset; then `input_only_one_gt_mask_point` over the same
      video with the default model: launches as scheduled, J&F finite.
+ 15. HQ phase: HQ-SAM ViT-H + PIPS composed as the CLI composes
+     `model=sam_pt model/sam@model.sam_predictor=samhq_vit_huge` (full
+     width, random bf16 weights, the two output biases set) over 24 x 2:
+     launches equal to the schedule (K3 with the HQ token, 42 keys in a
+     refinement pass), output checks, frames/s, phase 5's check through
+     the encoder (its `interm`, the first global block's output,
+     included) and the HQ decode chain; with --profile its stage split.
+ 16. MobileSAM and Light HQ-SAM phase: `sam_mobile_vit_tiny` and
+     `samhq_light_vit_tiny` + PIPS over 24 x 2: launches (K3 only, K1
+     and K2 at 0: TinyViT runs no kernel), output checks, frames/s, K3
+     against its plain version through the decode chain, TinyViT's bf16
+     embedding against the same weights in float32 on the card, the
+     encode's device time beside ViT-B's in turns (A B B A).
+ 17. Demo phase: a synthetic PNG frame directory (24 frames, two moving
+     boxes) and a query-points file under the gitignored `build/`; the
+     port's demo `main` with the default model (biases set): launches,
+     24 overlay frames written, masks and tracks equal to a direct
+     forward with the rng reset; then `python -m sam_pt_torch.demo` as a
+     subprocess: exit 0, 24 frames, its frames/s line.
 Then one JSON line with the per-kernel numbers (rows of K1-K4 at the
 main path's shapes, K1/K2 at ViT-B's, `global_attention_crop` at phase
-13's grid and `image_to_token_interactive` at phase 14's 325 token keys,
-each held to its plain version in the kernel phase), and as the last line
+13's grid, `image_to_token_interactive` at phase 14's 325 token keys and
+`cross_attention_hq` at phase 15's pairs and tokens, each held to its
+plain version in the kernel phase), and as the last line
 {"ok": true, "device": {...}}. The kernel phase alone:
 
     python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
 flash_attention as fa; chip_smoke.build_phase(); \
 chip_smoke.kernel_phase(fa, torch.device('cuda'))"
+
+The matrix products of the main path over 35 x 3 and of a 24-frame
+encode, by input shape, with a version of the package to compare (a
+copy unpacked under the gitignored `build/`, run in turns):
+
+    python3 chip_smoke.py --gemm-profile [--package build/<copy>]
 """
 from __future__ import annotations
 
@@ -400,6 +426,31 @@ def kernel_cases(fa, device) -> dict:
                 (img, k, v, valid_u8),
                 (b * 8, 4096, int(valid[0].sum()), 16))
 
+    # K3 in the HQ phase's refinement passes: a decode chunk of HQ_PAIRS
+    # pairs against hq_tokens() token keys (the HQ token the sixth output
+    # token), both directions, keys laid out as the decoder lays them.
+    def cross_hq():
+        b, nt = HQ_PAIRS, hq_tokens()
+        tok, k, v = randn(b, nt, 128), randn(b, 4096, 128), randn(
+            b, 4096, 128)
+        return (lambda: fa.cross_attention_cuda(tok, k, v, **kc),
+                lambda: fa.cross_attention_plain(tok, k, v, **kc),
+                library_cross(tok, k, v, **kc),
+                (tok, k, v), (b * 8, nt, 4096, 16))
+
+    def cross_hq_masked():
+        b, nt = HQ_PAIRS, hq_tokens()
+        img, k, v = randn(b, 4096, 128), randn(b, nt, 128), randn(b, nt, 128)
+        valid = hq_key_mask(b, device)
+        valid_u8 = valid.to(torch.uint8)
+        return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
+                                                **kc),
+                lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
+                                                 **kc),
+                library_cross(img, k, v, kv_valid=valid, **kc),
+                (img, k, v, valid_u8),
+                (b * 8, 4096, int(valid[0].sum()), 16))
+
     return {"window": window, "global": global_, "cross": cross,
             "cross_masked": cross_masked,
             "cross_unmasked": lambda: cross_masked(False),
@@ -408,7 +459,8 @@ def kernel_cases(fa, device) -> dict:
             "window_vit_b": lambda: window(12, 64),
             "global_vit_b": lambda: global_(12, 64),
             "global_crop": global_crop,
-            "cross_interactive": cross_interactive}
+            "cross_interactive": cross_interactive,
+            "cross_hq": cross_hq, "cross_hq_masked": cross_hq_masked}
 
 
 def crop_grid(image_size: int = 1024) -> tuple:
@@ -461,6 +513,36 @@ def interactive_key_mask(b: int, device) -> torch.Tensor:
     corners = DECODER_TOKENS + interactive_capacity()
     valid[:, :DECODER_TOKENS + INTERACTIVE_VISIBLE] = True
     valid[:, corners:corners + 2] = True
+    return valid
+
+
+# The HQ phase: HQ-SAM ViT-H + PIPS with the default model's settings (16
+# k-medoids positives and 1 negative a mask, the other object's positives
+# as negatives, decode chunk 32) over VARIANT_VIDEO.
+HQ_PAIRS = 32
+# (frames, objects) of the HQ, MobileSAM and Light HQ-SAM phases.
+VARIANT_VIDEO = (24, 2)
+
+
+def hq_tokens() -> int:
+    """Keys of the HQ decoder's image->token attention in a refinement
+    pass (12 of its 14): the 6 output tokens (the HQ token the sixth), a
+    mask's 17 points, the other object's 16 positives, 2 box corners and
+    the appended pad slot: at most 64, so the call stays on K3's
+    image->token kernel."""
+    from sam_pt_torch.build import SAM_PT_SETTINGS
+
+    n_pos = SAM_PT_SETTINGS["positive_points_per_mask"]
+    points = n_pos + SAM_PT_SETTINGS["negative_points_per_mask"]
+    return (DECODER_TOKENS + 1 + points + n_pos * (VARIANT_VIDEO[1] - 1)
+            + 2 + 1)
+
+
+def hq_key_mask(b: int, device) -> torch.Tensor:
+    """[b, hq_tokens()] bool: every point visible; the pad slot masked out
+    (a box is given)."""
+    valid = torch.ones((b, hq_tokens()), dtype=torch.bool, device=device)
+    valid[:, -1] = False
     return valid
 
 
@@ -573,12 +655,13 @@ def launch_schedule(sam_pt, encodes, decodes) -> dict:
     """Kernel launches of encode calls over `encodes` frames each and
     decode calls over `decodes` pairs each: per encode chunk one K1 a
     window block and one K2 a global block of the model's ViT (ViT-H: 28
-    and 4, ViT-B: 8 and 4), K3 5 per decoder pass and decode chunk, no
-    K4."""
+    and 4, ViT-B: 8 and 4; none for TinyViT), K3 5 per decoder pass and
+    decode chunk, no K4."""
     ec, dc = sam_pt.sam_encode_chunk, sam_pt.sam_decode_chunk
     encoder = sam_pt.sam_predictor.model.image_encoder
-    n_global = len(encoder.global_attn_indexes)
-    n_window = len(encoder.blocks) - n_global
+    # TinyViT (MobileSAM) runs no kernel: its attention is plain.
+    n_global = len(getattr(encoder, "global_attn_indexes", ()))
+    n_window = len(encoder.blocks) - n_global if n_global else 0
     enc = sum(-(-t // ec) for t in encodes)
     dec = sum(-(-n // min(dc, n)) for n in decodes)
     passes = 2 + sam_pt.iterative_refinement_iterations
@@ -658,7 +741,10 @@ def check_outputs(out, masks, n_frames, n_masks, n_points, query_ts=None):
 
 
 def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
-    """Encode chunk and decode chunk with kernels vs with plain versions."""
+    """Encode chunk and decode chunk with kernels vs with plain versions
+    (every part of HQ-SAM's embeddings, `interm` included)."""
+    from sam_pt_torch.models.sam_pt import emb_map
+
     predictor = sam_pt.sam_predictor
     device = sam_pt.device
     frames = torch.from_numpy(video["image"][:4]).to(device)
@@ -684,8 +770,13 @@ def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
     finally:
         for name, fn in saved.items():
             setattr(fa, name, fn)
-    e = rel(emb_k, emb_p)
-    log(f"{label}: encoder embeddings kernels vs plain rel_l2 {e:.3e}")
+    parts = (emb_k.keys() if isinstance(emb_k, dict) else [None])
+    errs = {k: rel(*(e if k is None else e[k] for e in (emb_k, emb_p)))
+            for k in parts}
+    e = max(errs.values())
+    log(f"{label}: encoder embeddings kernels vs plain rel_l2 "
+        + ", ".join(f"{'' if k is None else k + ' '}{v:.3e}"
+                    for k, v in errs.items()))
 
     rng = np.random.default_rng(3)
     b = 8
@@ -693,7 +784,7 @@ def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
                           dtype=torch.float32, device=device)
     lbl = torch.as_tensor(np.r_[[1] * 16, 0, -1][None].repeat(b, 0),
                           device=device)
-    emb = emb_k[torch.arange(b, device=device) % 4]
+    emb = emb_map(lambda x: x[torch.arange(b, device=device) % 4], emb_k)
     up_k, iou_k = sam_pt._chain(emb, pts, lbl, hw)
     try:
         for name, fn in plain.items():
@@ -1684,6 +1775,284 @@ def interactive_phase(fa, card: str, model=CLI_MODEL,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The variants' models on random weights (the checkpoints are not in the
+# repository), composed as the CLI composes them.
+VARIANT_MODEL = ("model.sam_predictor.allow_random_init=true",
+                 "model.point_tracker.allow_random_init=true")
+
+
+def compose_model(sam_config: str, overrides=VARIANT_MODEL):
+    """`cfg["model"]` of `model=sam_pt model/sam@model.sam_predictor=
+    <sam_config>` from the port's configs, instantiated on the card, the
+    two output biases set (`bias_for_a_live_run`)."""
+    import warnings
+
+    from sam_pt_torch.config import compose, instantiate
+    from sam_pt_torch.config import resolve_interpolations
+    from sam_pt_torch.vos_eval.eval import CONFIG_DIR
+
+    cfg = resolve_interpolations(compose(CONFIG_DIR, "vos_eval_root", [
+        "model=sam_pt", f"model/sam@model.sam_predictor={sam_config}",
+        *overrides]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the checkpoints are missing
+        sam_pt = instantiate(cfg["model"])
+    bias_for_a_live_run(sam_pt)
+    return sam_pt
+
+
+def variant_run(sam_pt, fa, fuse, label: str, card: str, seed: int):
+    """One variant over VARIANT_VIDEO: launches equal to the schedule (K3
+    at least 5 a decoder pass), output checks, a timed second pass.
+    Returns (launches, video)."""
+    t, m = VARIANT_VIDEO
+    video = make_video(t, m, seed=seed)
+    n_points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
+    fa.reset_launch_counts()
+    out, masks = run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    expected = launch_schedule(sam_pt, [t], [t * m])
+    log(f"{label}: launches {launches} expected {expected}")
+    if launches != expected:
+        raise SystemExit(f"{label}: launch counts differ")
+    log(f"{label}: video {t} frames x {m} objects: "
+        + check_outputs(out, masks, t, m, n_points))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"{label}: timed pass {wall:.3f} s for {t} frames = "
+        f"{t / wall:.3f} frames/s on {card}")
+    return launches, video
+
+
+VARIANT_STAGES = ("_encode_all_frames", "extract_query_points",
+                  "_track_points_device", "_apply_sam_device")
+
+
+def hq_phase(fa, fuse, card: str, profiling: bool) -> dict:
+    """HQ-SAM ViT-H + PIPS (`model=sam_pt model/sam@model.sam_predictor=
+    samhq_vit_huge`) at full width over VARIANT_VIDEO: launches, output
+    checks, frames/s, kernels against plain versions through the encoder
+    (its `interm` included) and the HQ decode chain; with --profile its
+    stage split. Returns the launches."""
+    t0 = time.perf_counter()
+    sam_pt = compose_model("samhq_vit_huge")
+    torch.cuda.synchronize()
+    model = sam_pt.sam_predictor.model
+    vit_dim = model.mask_decoder.compress_vit_feat[0].in_channels
+    log(f"hq: built SamPt (HQ-SAM ViT-H {len(model.image_encoder.blocks)} "
+        f"blocks, early features {vit_dim} wide, {model.dtype} + "
+        f"{type(sam_pt.point_tracker).__name__}, random) in "
+        f"{time.perf_counter() - t0:.1f} s; image->token keys in a "
+        f"refinement pass: {hq_tokens()}")
+    launches, video = variant_run(sam_pt, fa, fuse, "hq", card, seed=13)
+    reference_phase(sam_pt, fa, video, label="hq reference")
+    if profiling:
+        stage_split(sam_pt, "hq_{}x{}".format(*VARIANT_VIDEO), VARIANT_STAGES,
+                    lambda: run_video(sam_pt, video, fuse), card)
+    del sam_pt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# TinyViT's bf16 embedding against the same weights in float32 on the
+# card: bf16 rounds each op to 2^-8 relative; 3.5e-3 measured on the CPU
+# at 512 pixels.
+TINY_VIT_F32_REL_L2 = 2e-2
+
+
+def mobile_phase(fa, fuse, card: str, profiling: bool) -> dict:
+    """MobileSAM and Light HQ-SAM + PIPS (`sam_mobile_vit_tiny`,
+    `samhq_light_vit_tiny`) over VARIANT_VIDEO: launches (K3 only: TinyViT
+    runs no kernel), output checks, frames/s, K3 against its plain version
+    through the decode chain, the bf16 embedding against float32 weights on
+    the card, and the encode's device time beside ViT-B's (the default
+    model's), in turns. Returns each variant's launches."""
+    import copy
+
+    from sam_pt_torch.models.sam.predictor import SamPredictor
+
+    vit_b = compose_model("sam_vit_base")
+    found = {}
+    for name, seed in (("sam_mobile_vit_tiny", 14),
+                       ("samhq_light_vit_tiny", 15)):
+        sam_pt = compose_model(name)
+        launches, video = variant_run(sam_pt, fa, fuse, name, card, seed)
+        if launches["window"] or launches["global"]:
+            raise SystemExit(f"{name}: K1 or K2 launched by TinyViT")
+        log(f"{name}: K1 and K2 at 0 (TinyViT's attention is plain, as in "
+            f"the JAX package), K3 {launches['cross']}: the decoder's only")
+        reference_phase(sam_pt, fa, video, label=f"{name} reference")
+
+        frames = torch.from_numpy(video["image"][:4]).to(sam_pt.device)
+        model32 = copy.deepcopy(sam_pt.sam_predictor.model).float()
+        emb16 = sam_pt.sam_predictor.encode_frames(frames, (H, W))
+        emb32 = SamPredictor(model32).encode_frames(frames, (H, W))
+        parts = emb16.keys() if isinstance(emb16, dict) else [None]
+        errs = {k: float((a.float() - b).norm() / b.norm())
+                for k in parts for a, b in [(emb16, emb32) if k is None
+                                            else (emb16[k], emb32[k])]}
+        ok = max(errs.values()) <= TINY_VIT_F32_REL_L2
+        log(f"{name}: TinyViT bf16 vs float32 weights on the card rel_l2 "
+            + ", ".join(f"{'emb' if k is None else k} {v:.3e}"
+                        for k, v in errs.items())
+            + f" (<= {TINY_VIT_F32_REL_L2:g}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name}: bf16 TinyViT disagrees with float32")
+        del model32
+
+        images = torch.from_numpy(video["image"]).to(sam_pt.device)
+        times = {"tiny_vit": [], "vit_b": []}
+        for which in ("tiny_vit", "vit_b", "vit_b", "tiny_vit"):
+            model = sam_pt if which == "tiny_vit" else vit_b
+            times[which].append(profiled_ms(
+                lambda: model._encode_all_frames(images), calls=1))
+        tiny, base = (float(np.mean(times[k])) for k in ("tiny_vit",
+                                                          "vit_b"))
+        log(f"{name}: encode of {len(images)} frames, device time by the "
+            f"profiler (turns A B B A): TinyViT {times['tiny_vit']} ms, "
+            f"ViT-B {times['vit_b']} ms; TinyViT / ViT-B {tiny / base:.3f} "
+            f"on {card}")
+        if profiling:
+            stage_split(sam_pt, "{}_{}x{}".format(name, *VARIANT_VIDEO),
+                        VARIANT_STAGES,
+                        lambda: run_video(sam_pt, video, fuse), card)
+        found[name] = launches
+        del sam_pt
+        torch.cuda.empty_cache()
+    del vit_b
+    torch.cuda.empty_cache()
+    return found
+
+
+# The demo phase's frame directory: DEMO_FRAMES PNG frames at H x W, two
+# boxes moving over a random texture; the query file: 4 positives and 1
+# negative a box on frame 0.
+DEMO_FRAMES = 24
+DEMO_BOXES = ((60, 200, 80, 300, 2, 4), (260, 420, 480, 700, 1, 3))
+
+
+def write_demo_inputs(root: str, frames=None) -> tuple:
+    """The demo phase's frame directory and query-points file under
+    `root`: returns their paths."""
+    from sam_pt_torch.vos_eval.data.image_io import write_png
+
+    frames = DEMO_FRAMES if frames is None else frames
+    rng = np.random.default_rng(16)
+    folder = os.path.join(root, "frames")
+    os.makedirs(folder)
+    texture = rng.integers(0, 255, (H // 8 + 1, W // 8 + 1, 3))
+    texture = texture.repeat(8, 0).repeat(8, 1)[:H, :W]
+    colours = ((230, 40, 40), (40, 40, 230))
+    for t in range(frames):
+        frame = texture + rng.integers(-10, 10, (H, W, 3))
+        for (y0, y1, x0, x1, dy, dx), colour in zip(DEMO_BOXES, colours):
+            rows = slice((y0 + dy * t) * H // 480, (y1 + dy * t) * H // 480)
+            cols = slice((x0 + dx * t) * W // 854, (x1 + dx * t) * W // 854)
+            frame[rows, cols] = colour
+        write_png(os.path.join(folder, f"{t:05d}.png"),
+                  np.clip(frame, 0, 255).astype(np.uint8))
+    lines = ["4"]
+    for y0, y1, x0, x1, _, _ in DEMO_BOXES:
+        ys = np.linspace(y0 + 20, y1 - 20, 4) * H / 480
+        xs = np.linspace(x0 + 20, x1 - 20, 4) * W / 854
+        neg = ((y1 + 25) * H / 480, (x1 + 25) * W / 854)
+        lines.append("0 ; " + " ".join(
+            f"{x:.1f},{y:.1f}" for x, y in [*zip(xs, ys), neg[::-1]]))
+    points = os.path.join(root, "query_points.txt")
+    with open(points, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return folder, points
+
+
+def demo_phase(fa, card: str, model=CLI_MODEL) -> dict:
+    """The port's demo with the repo's default model over a synthetic PNG
+    frame directory (`write_demo_inputs`) under the gitignored `build/`:
+    `main` in the process with the two output biases set (launches, 24
+    overlay frames written, masks and tracks equal to a direct
+    `SamPt.forward` on the same frames with the rng reset), then
+    `python -m sam_pt_torch.demo` as a subprocess (exit 0, 24 frames, its
+    frames/s line). `model` holds the overrides that give both runs their
+    model. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from sam_pt_torch import demo
+    from sam_pt_torch.config import compose, instantiate
+    from sam_pt_torch.config import resolve_interpolations
+
+    here = os.path.dirname(os.path.realpath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="demo_phase_",
+                            dir=os.path.join(here, "build"))
+    try:
+        folder, points = write_demo_inputs(root)
+        base = [f"frames_path={folder}", f"query_points_path={points}",
+                *model]
+        cfg = resolve_interpolations(compose(demo.CONFIG_DIR, "demo", [
+            *base, f"output_dir={root}/out0"]))
+        sam_pt = instantiate(cfg["model"])
+        bias_for_a_live_run(sam_pt)
+        cfg["model"] = sam_pt
+        rng_state = sam_pt.rng.bit_generator.state
+        fa.reset_launch_counts()
+        outputs = demo.main(cfg)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        images, scale = demo.load_frames(folder, cfg["frame_stride"],
+                                         cfg["max_frames"],
+                                         cfg["longest_side_length"])
+        qp, _ = demo.load_query_points(points, scale)
+        t, m = len(images), len(qp)
+        # the query frame's decode (one pair an object), then the video's
+        expected = launch_schedule(sam_pt, [t], [m, t * m])
+        written = sorted(os.listdir(os.path.join(root, "out0", "frames")))
+        log(f"demo: main over {t} PNG frames {H} x {W} resized to "
+            f"{images.shape[1]} x {images.shape[2]}, {m} masks of "
+            f"{qp.shape[1]} points: launches {launches} expected "
+            f"{expected}, {len(written)} frames written")
+        if launches != expected or len(written) != t:
+            raise SystemExit("demo: launches or written frames differ")
+
+        sam_pt.rng.bit_generator.state = rng_state
+        direct = demo.run_inference(sam_pt, images, qp)
+        same = (np.array_equal(direct["logits"].float().cpu().numpy() > 0,
+                               outputs["logits"] > 0)
+                and np.array_equal(direct["trajectories"].cpu().numpy(),
+                                   outputs["trajectories"]))
+        fg = float((outputs["logits"] > 0).mean())
+        log(f"demo: masks and tracks equal the direct forward's: {same} "
+            f"(foreground {fg:.4f} of the pixels) {'OK' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("demo: the masks differ from the direct forward")
+        del sam_pt, cfg
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sam_pt_torch.demo", *base,
+             f"output_dir={root}/out1"],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        fps = [line for line in proc.stdout.splitlines()
+               if line.startswith("Inference:")]
+        n = len(os.listdir(os.path.join(root, "out1", "frames"))) if (
+            os.path.isdir(os.path.join(root, "out1", "frames"))) else 0
+        ok = proc.returncode == 0 and len(fps) == 1 and n == t
+        log(f"demo: python -m sam_pt_torch.demo exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s, {n} frames written: "
+            f"{'; '.join(fps)} on {card} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+            raise SystemExit("demo: the entry point failed")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # JSON row -> (source, the TPU function it replaces)
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -1703,14 +2072,19 @@ VIT_B_ROWS = ("window", "global")
 
 def kernel_json(report: dict, launches: dict, route_launches: dict,
                 default_launches: dict, crop_launches: dict,
-                interactive_launches: dict) -> list:
+                interactive_launches: dict, *, hq_launches: dict) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
     ViT-B's shapes (`_vit_b`) with the default model's launches; then K2
     on the cropped grid with the crop phase's launches and K3
     image->token at the interactive capacity with the interactive run's
-    image->token launches (2 of the 5 K3 calls of a decoder pass)."""
+    image->token launches (2 of the 5 K3 calls of a decoder pass); then
+    K3 with the HQ token at the HQ phase's pairs and tokens
+    (`cross_attention_hq`, token->image and, suffixed, image->token) with
+    the HQ phase's K3 launches, one count for both directions (the
+    wrapper counts K3 launches, not which kernel each took), as the row's
+    `launches_of` says."""
     kernels = []
     for key, (source, replaces) in KERNEL_SOURCES.items():
         r = report[key]
@@ -1753,7 +2127,92 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
                         "replaces": replaces, "launches": count,
                         "max_abs_err": r["max_abs_err"],
                         **{f: r[f] for f in TIMES}})
+    source, replaces = KERNEL_SOURCES["cross"]
+    r, m = report["cross_hq"], report["cross_hq_masked"]
+    kernels.append({"name": "cross_attention_hq", "route": "cuda",
+                    "source": source, "replaces": replaces,
+                    "launches": hq_launches["cross"],
+                    "launches_of": "token_to_image + image_to_token",
+                    "max_abs_err": max(r["max_abs_err"], m["max_abs_err"]),
+                    **{f: r[f] for f in TIMES},
+                    **{f + "_image_to_token": m[f] for f in TIMES}})
     return kernels
+
+
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+            "aten::matmul", "aten::linear", "aten::einsum")
+
+
+def gemm_profile(card: str, tag: str, device: str = "cuda") -> dict:
+    """The device time of the main path over the 35 x 3 video, of a
+    24-frame encode (the crop phase's video) and of a RAFT pass over the
+    same frames, each after a warm run, one run under torch.profiler with
+    shapes recorded: the kernels with the most device time, and the
+    matrix-product operators grouped by their input shapes (which call
+    launched which product), beside the run's wall time with and without
+    the profiler. Tables go to chiprun_out/gemm_<label>_<tag>.txt.
+    Returns {label: device ms, label_wall_ms: wall ms without it}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sam_pt_torch.build import build_sam_pt
+    from sam_pt_torch.vos_eval.eval import device_fuse_index_masks
+
+    sam_pt = build_sam_pt(device, dtype=torch.bfloat16, seed=0)
+    bias_for_a_live_run(sam_pt)
+    video = make_video(*VIDEOS[-1], seed=len(VIDEOS) - 1)
+    images = torch.from_numpy(make_video(24, 1, seed=0)["image"]).to(
+        sam_pt.device)
+    # RAFT (the tracker phase's settings, 17 points) samples its
+    # correlation pyramid by `separable_neighborhood_sample`.
+    from sam_pt_torch.build import TRACKER_SETTINGS
+    from sam_pt_torch.models.tracker import TRACKER_REGISTRY
+
+    raft = TRACKER_REGISTRY["raft"](allow_random_init=True, seed=1,
+                                    device=device, **TRACKER_SETTINGS["raft"])
+    rng = np.random.default_rng(9)
+    qp = np.concatenate([np.zeros((17, 1)), rng.uniform(
+        [8, 8], [W - 8, H - 8], (17, 2))], 1)[None].astype(np.float32)
+    runs = {"main_35x3": lambda: run_video(sam_pt, video,
+                                           device_fuse_index_masks),
+            "encode_24": lambda: sam_pt._encode_all_frames(images),
+            "raft_24": lambda: raft.forward_device(images[None], qp)}
+    found = {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    for label, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=40)
+        total_ms = self_cuda_us(kernels) / 1e3
+        by_shape = [e for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key in GEMM_OPS and e.self_device_time_total > 0]
+        by_shape.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        log(f"gemm {tag} {label}: device {total_ms:.3f} ms, wall "
+            f"{wall * 1e3:.3f} ms under the profiler, {timed * 1e3:.3f} ms "
+            f"without it on {card}")
+        for e in by_shape[:12]:
+            log(f"  gemm {tag} {label}: {e.self_device_time_total / 1e3:9.3f}"
+                f" ms x{e.count:<5d} {e.key} {e.input_shapes}")
+        with open(f"chiprun_out/gemm_{label}_{tag}.txt", "w") as f:
+            f.write(kernels)
+            f.write("\n".join(
+                f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+                f"{e.key} {e.input_shapes}" for e in by_shape) + "\n")
+        found[label] = total_ms
+        found[f"{label}_wall_ms"] = timed * 1e3
+    log(json.dumps({"gemm_profile": tag, **found}))
+    return found
 
 
 def main() -> int:
@@ -1764,6 +2223,18 @@ def main() -> int:
         return 2
     card = card_line()
     log(card)
+    if "--gemm-profile" in sys.argv[1:]:
+        # F7's A/B: `--package DIR` profiles the sam_pt_torch package at
+        # DIR (another version's copy) instead of this checkout's.
+        args = sys.argv[1:]
+        package = args[args.index("--package") + 1] if (
+            "--package" in args) else os.path.dirname(
+                os.path.realpath(__file__))
+        sys.path.insert(0, os.path.realpath(package))
+        import sam_pt_torch
+        log(f"gemm profile of {sam_pt_torch.__file__}")
+        gemm_profile(card, os.path.basename(os.path.realpath(package)))
+        return 0
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -1848,10 +2319,13 @@ def main() -> int:
     tracker_phase(device, card)
     cli_phase(fa, card)
     interactive_launches = interactive_phase(fa, card)
+    hq_launches = hq_phase(fa, device_fuse_index_masks, card, profiling)
+    mobile_phase(fa, device_fuse_index_masks, card, profiling)
+    demo_phase(fa, card)
 
     log(json.dumps({"kernels": kernel_json(
         report, launches, route_launches, default_launches, crop_launches,
-        interactive_launches)}))
+        interactive_launches, hq_launches=hq_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

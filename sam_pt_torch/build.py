@@ -5,7 +5,9 @@ With its defaults, `build_sam_pt` builds the main path (what
 `bench.py::build_pipeline` builds for the JAX package): SAM ViT-H +
 CoTracker (stride 4, window 8, interp 384 x 512, 6 iterations, support grid
 2 every 12 frames) under `SamPt` with the reference's default point
-configuration. `sam=` picks the SAM variant (`vit_b`, `vit_l`, `vit_h`) and
+configuration. `sam=` picks the SAM encoder (`vit_b`, `vit_l`, `vit_h`, or
+`vit_t`, MobileSAM's TinyViT), `hq=True` HQ-SAM's decoder (HQ-SAM ViT-H is
+`sam="vit_h", hq=True`, Light HQ-SAM `sam="vit_t", hq=True`), and
 `tracker=` the point tracker (`cotracker`, `pips`, `pips_plus_plus`,
 `raft`, each as its `configs/model/point_tracker/*.yaml` sets it). The
 repo's default model, `configs/model/sam_pt.yaml`, is
@@ -16,7 +18,8 @@ for long videos).
 
 Weights are random: SAM's (and CoTracker's, after SAM's) are drawn from one
 generator on the device seeded with `seed`, every parameter and buffer
-~ N(0, 0.02^2) in the working dtype; PIPS, PIPS++ and RAFT are built in
+~ N(0, 0.02^2) in the working dtype (TinyViT's BatchNorm statistics then
+reset to mean 0, variance 1); PIPS, PIPS++ and RAFT are built in
 float32 by their own constructors, seeded with `seed + 1`.
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Union
 
 import torch
 
+from .models.batch_norm import reset_batch_norm_stats_
 from .models.sam.predictor import SamPredictor
 from .models.sam.sam_model import Sam
 from .models.sam_pt import SamPt
@@ -66,16 +70,17 @@ TRACKER_SETTINGS = {
 def build_sam_pt(device: Union[str, torch.device],
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  sam: str = "vit_h", tracker: str = "cotracker",
-                 **settings) -> SamPt:
-    """SamPt with SAM `sam` in `dtype` and the point tracker `tracker` on
-    `device`, random weights from `seed`; `settings` override
-    SAM_PT_SETTINGS (DEFAULT_SETTINGS for the repo's default model,
-    REINIT_SETTINGS for the reinit configuration)."""
+                 hq: bool = False, **settings) -> SamPt:
+    """SamPt with SAM `sam` (HQ-SAM's decoder if `hq`) in `dtype` and the
+    point tracker `tracker` on `device`, random weights from `seed`;
+    `settings` override SAM_PT_SETTINGS (DEFAULT_SETTINGS for the repo's
+    default model, REINIT_SETTINGS for the reinit configuration)."""
     device = torch.device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 
-    sam_model = randomize_(Sam(sam).to(device), generator)
+    sam_model = reset_batch_norm_stats_(
+        randomize_(Sam(sam, use_hq=hq).to(device), generator))
     sam_model.to(dtype).eval().requires_grad_(False)
     if tracker == "cotracker":
         model = randomize_(CoTracker(s=8, stride=4).to(device), generator)

@@ -1,6 +1,7 @@
 """A SAM predictor from a model configuration's keys
 (counterpart of `sam_pt_tpu/models/sam/factory.py`; the keys of
-`configs/model/sam/*.yaml`), plus the device it runs on."""
+`configs/model/sam/*.yaml`: SAM ViT-B/L/H, HQ-SAM, MobileSAM and Light
+HQ-SAM), plus the device it runs on."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -8,6 +9,7 @@ from typing import Optional, Union
 import torch
 
 from ...utils.checkpoint import load_or_randomize_
+from ..batch_norm import reset_batch_norm_stats_
 from .image_encoder import VIT_VARIANTS
 from .predictor import SamPredictor
 from .sam_model import Sam
@@ -23,20 +25,23 @@ def build_predictor(variant: str = "vit_b", checkpoint: Optional[str] = None,
                     crop_pad_tokens: bool = False,
                     device: Union[str, torch.device] = "cuda"
                     ) -> SamPredictor:
-    """A SamPredictor for a ViT variant (`vit_b`, `vit_l`, `vit_h`) in
-    `dtype` on `device`: the public `segment_anything` checkpoint loaded as
-    it is, or, where the file is missing and `allow_random_init` is set,
-    N(0, 0.02^2) weights from a generator on `device` seeded with `seed`.
-    A missing file raises FileNotFoundError otherwise. `crop_pad_tokens`
-    runs the encoder on the tokens that cover the frame only (opt-in; it
-    deviates from the reference)."""
-    if hq or hq_token_only:
-        raise NotImplementedError("the HQ-SAM decoder is not ported yet")
-    if variant not in VIT_VARIANTS:
-        raise NotImplementedError(
-            f"SAM variant {variant!r} is not ported (TinyViT is not yet)")
+    """A SamPredictor for a ViT variant (`vit_b`, `vit_l`, `vit_h`) or
+    MobileSAM's TinyViT (`vit_t`), with HQ-SAM's decoder if `hq`, in
+    `dtype` on `device`: the public checkpoint loaded as it is (`segment_anything`, `segment_anything_hq`,
+    MobileSAM, or a HuggingFace `transformers` SAM file, converted), or,
+    where the file is missing and `allow_random_init` is set, N(0, 0.02^2)
+    weights from a generator on `device` seeded with `seed` (BatchNorm
+    statistics at mean 0, variance 1). A missing file raises
+    FileNotFoundError otherwise. `crop_pad_tokens` runs a ViT encoder on
+    the tokens that cover the frame only (opt-in; it deviates from the
+    reference)."""
+    if variant != "vit_t" and variant not in VIT_VARIANTS:
+        raise ValueError(f"unknown SAM variant {variant!r}")
     model = Sam(variant, image_size=image_size,
-                crop_pad_tokens=crop_pad_tokens)
-    load_or_randomize_(model, checkpoint, allow_random_init=allow_random_init,
-                       seed=seed, device=device)
+                crop_pad_tokens=crop_pad_tokens, use_hq=hq,
+                hq_token_only=hq_token_only)
+    if not load_or_randomize_(model, checkpoint,
+                              allow_random_init=allow_random_init, seed=seed,
+                              device=device):
+        reset_batch_norm_stats_(model)
     return SamPredictor(model.to(DTYPES[dtype]).eval().requires_grad_(False))

@@ -279,9 +279,13 @@ class ImageEncoderViT(nn.Module):
         )
 
     def forward(self, x: torch.Tensor,
-                valid_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                valid_hw: Optional[Tuple[int, int]] = None,
+                return_interm: bool = False):
         """`valid_hw`: the (rows, cols) of tokens that cover the frame, for
-        pad-token cropping; None runs the whole grid."""
+        pad-token cropping; None runs the whole grid. With `return_interm`,
+        also the first global block's output [B, g, g, embed_dim] (the
+        early features HQ-SAM's decoder reads), zero-filled off the frame
+        when cropped."""
         x = self.patch_embed(x)
         x = x + self.pos_embed.to(x.dtype)
         grid = x.shape[1]
@@ -291,11 +295,14 @@ class ImageEncoderViT(nn.Module):
         b, gh, gw, c = x.shape
         win = self.window_size
         i, depth = 0, len(self.blocks)
+        interm = None
         while i < depth:
             if i in self.global_attn_indexes:
                 x = self.blocks[i](x.reshape(b, gh * gw, c), (gh, gw),
                                    cropped=cropped)
                 x = x.reshape(b, gh, gw, c)
+                if interm is None:
+                    interm = x
                 i += 1
                 continue
             end = i
@@ -314,4 +321,8 @@ class ImageEncoderViT(nn.Module):
         x = self.neck[3](x)
         if cropped:  # the decoder reads the whole grid: zeros off the frame
             x = F.pad(x, (0, 0, 0, grid - gw, 0, grid - gh))
+            if interm is not None:
+                interm = F.pad(interm, (0, 0, 0, grid - gw, 0, grid - gh))
+        if return_interm:
+            return x, interm
         return x

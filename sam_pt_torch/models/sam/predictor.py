@@ -5,7 +5,8 @@ resize runs on the device); `decode` decodes a batch of (embedding,
 prompt-set) pairs with label -1 padding, in model-input coordinates;
 `predict` does the same from original image pixels and picks SAM's single
 or multimask output tokens. `scale_coords` maps original pixels to
-model-input coordinates.
+model-input coordinates. With an HQ-SAM model the embeddings are
+{'emb', 'interm'} dicts (`Sam.encode_images`), passed on as they are.
 """
 from __future__ import annotations
 
@@ -28,9 +29,10 @@ class SamPredictor:
 
     @torch.no_grad()
     def encode_frames(self, images: torch.Tensor,
-                      original_hw: Tuple[int, int]) -> torch.Tensor:
+                      original_hw: Tuple[int, int]):
         """images [B, H, W, 3] uint8/float RGB at original resolution, on
-        the model's device -> embeddings [B, g, g, 256]."""
+        the model's device -> embeddings [B, g, g, 256] (with HQ-SAM, the
+        dict of `Sam.encode_images`)."""
         target_hw = get_longest_side_target_hw(
             original_hw[0], original_hw[1], self.model.image_size)
         x = resize_bilinear(images.float(), target_hw,
@@ -47,16 +49,18 @@ class SamPredictor:
         return coords * scale
 
     @torch.no_grad()
-    def decode(self, embeddings: torch.Tensor, points: torch.Tensor,
+    def decode(self, embeddings, points: torch.Tensor,
                labels: torch.Tensor, mask_input: Optional[torch.Tensor] = None,
                mask_valid: Optional[torch.Tensor] = None,
                only_token0: bool = False):
-        """Model-space prompts -> (logits [B, T, 4g, 4g], iou [B, 4])."""
-        return self.model.decode_masks(embeddings, points, labels, mask_input,
-                                       mask_valid, only_token0=only_token0)
+        """Model-space prompts -> (logits [B, T, 4g, 4g], iou [B, 4]); an
+        HQ-SAM model decodes every token (its token 0 reads the HQ one)."""
+        return self.model.decode_masks(
+            embeddings, points, labels, mask_input, mask_valid,
+            only_token0=only_token0 and not self.model.use_hq)
 
     @torch.no_grad()
-    def predict(self, embeddings: torch.Tensor, points, labels,
+    def predict(self, embeddings, points, labels,
                 original_hw: Tuple[int, int],
                 mask_input: Optional[torch.Tensor] = None,
                 mask_valid: Optional[torch.Tensor] = None,
@@ -66,7 +70,7 @@ class SamPredictor:
         Returns (low-res logits [B, K, 4g, 4g], iou [B, K], the token
         slice) with K = 3 (tokens 1-3) if `multimask_output`, else 1
         (token 0)."""
-        device = embeddings.device
+        device = self.model.device
         pts = self.scale_coords(
             torch.as_tensor(points, dtype=torch.float32, device=device),
             original_hw)

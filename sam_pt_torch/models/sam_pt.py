@@ -49,6 +49,16 @@ from .tracker.api import PointTracker
 NEG_INF = -float("inf")
 
 
+def emb_map(fn, *embeddings):
+    """`fn` over frame embeddings: tensors [T, ...], or HQ-SAM's
+    {'emb', 'interm'} dicts of them key by key (the JAX package's
+    `_emb_index` through `jax.tree_util.tree_map`). With several
+    arguments, `fn` takes one of each."""
+    if isinstance(embeddings[0], dict):
+        return {k: fn(*(e[k] for e in embeddings)) for k in embeddings[0]}
+    return fn(*embeddings)
+
+
 def build_prompts(traj: torch.Tensor, vis: torch.Tensor, n_pos: int,
                   has_neg: bool, add_other: bool):
     """traj [T, M, P, 2], vis [T, M, P] -> points [T, M, N, 2], labels
@@ -217,8 +227,8 @@ class SamPt:
 
         target_hw = tuple(video["target_hw"])
         if (h, w) != target_hw:
-            # Whole-plane -inf sentinels would turn to NaN in the matrix
-            # resize (0 * inf): clamp for the resize, then restore them.
+            # Whole-plane -inf sentinels would turn to NaN in the resize (a
+            # zero tap weight times inf): clamp for it, then restore them.
             blank = torch.isneginf(logits).all(dim=-1).all(dim=-1)
             clamped = torch.clamp(logits, min=-30000.0)
             logits = resize_planes(clamped, target_hw)
@@ -270,9 +280,10 @@ class SamPt:
                                         rng=self.rng)
         raise NotImplementedError(f"Point selection method {method}")
 
-    def _encode_all_frames(self, images_dev: torch.Tensor) -> torch.Tensor:
-        """[T, H, W, 3] uint8 -> [T, g, g, 256], in chunks of
-        `sam_encode_chunk` frames (the last padded with its final frame)."""
+    def _encode_all_frames(self, images_dev: torch.Tensor):
+        """[T, H, W, 3] uint8 -> [T, g, g, 256] (with HQ-SAM, a dict of
+        such), in chunks of `sam_encode_chunk` frames (the last padded with
+        its final frame)."""
         t, h, w, _ = images_dev.shape
         ec = self.sam_encode_chunk
         chunks = []
@@ -282,8 +293,8 @@ class SamPt:
             if pad:
                 chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1, -1)])
             emb = self.sam_predictor.encode_frames(chunk, (h, w))
-            chunks.append(emb[:ec - pad])
-        return torch.cat(chunks, dim=0)
+            chunks.append(emb_map(lambda e: e[:ec - pad], emb))
+        return emb_map(lambda *c: torch.cat(c, dim=0), *chunks)
 
     def _track_points_device(self, images_dev, query_points, hw):
         """Track in mask batches; with `use_patch_matching_filtering`, the
@@ -404,8 +415,8 @@ class SamPt:
             nb = stop - i
             idx = torch.cat([torch.arange(i, stop, device=device),
                              torch.full((chunk - nb,), i, device=device)])
-            up, iou = chain(embeddings[emb_flat[idx]], pts_flat[idx],
-                            lbl_flat[idx], hw)
+            emb = emb_map(lambda e: e[emb_flat[idx]], embeddings)
+            up, iou = chain(emb, pts_flat[idx], lbl_flat[idx], hw)
             ups.append(up[:nb])
             ious.append(iou[:nb])
         return torch.cat(ups, dim=0), torch.cat(ious, dim=0)
@@ -474,16 +485,17 @@ class SamPt:
     # ------------------------------------------------------------------
     def extract_query_masks(self, images: np.ndarray,
                             query_points: np.ndarray,
-                            embeddings: torch.Tensor) -> np.ndarray:
+                            embeddings) -> np.ndarray:
         """Query masks [M, H, W] float32 from query points [M, P, 3]: SAM
         decodes each mask's query frame from its points, reusing that
         frame's embedding (`embeddings` [T, g, g, 256] of `images`)."""
         qidx = torch.as_tensor(query_points[:, 0, 0].astype(np.int64),
-                               device=embeddings.device)
+                               device=self.device)
         # each mask's query frame is its own "frame", with one mask on it
         traj = query_points[:, None, :, 1:]  # [frames=M, masks=1, P, 2]
         vis = np.ones(traj.shape[:-1], np.float32)
-        logits, _ = self._apply_sam(traj, vis, embeddings[qidx],
+        logits, _ = self._apply_sam(traj, vis,
+                                    emb_map(lambda e: e[qidx], embeddings),
                                     images.shape[1:3])
         threshold = self.sam_predictor.model.mask_threshold
         return (logits[0] > threshold).astype(np.float32)
@@ -537,13 +549,13 @@ class SamPt:
         return points.astype(np.float32), labels
 
     def _apply_sam(self, trajectories: np.ndarray, visibilities: np.ndarray,
-                   embeddings: torch.Tensor, hw: Tuple[int, int]
+                   embeddings, hw: Tuple[int, int]
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Every (frame, mask) pair of host trajectories, decoded against
         the frames' `embeddings` [T, g, g, 256] on the device, with host
         prompts. Returns logits [M, T, h, w] and scores_per_frame [T, M],
         numpy float32."""
-        points, labels = (torch.from_numpy(a).to(embeddings.device)
+        points, labels = (torch.from_numpy(a).to(self.device)
                           for a in self._build_prompts(trajectories,
                                                        visibilities))
         logits, scores_per_frame = self._decode_prompts(hw, points, labels,
@@ -574,7 +586,8 @@ class SamPt:
         # torch has no negative strides: the flips are copies.
         traj_l, vis_l, logits_l, spf_l = self._forward_w_reinit_inner(
             images[::-1].copy(), torch.flip(images_dev, [0]),
-            torch.flip(embeddings, [0]), qp_flipped, "backward")
+            emb_map(lambda e: torch.flip(e, [0]), embeddings), qp_flipped,
+            "backward")
         traj_l, vis_l, logits_l = traj_l[::-1], vis_l[::-1], logits_l[:, ::-1]
         # As in the JAX package and the reference: the backward pass's
         # scores_per_frame is stitched without being flipped back.
@@ -622,7 +635,8 @@ class SamPt:
             traj_i = traj_i[:end - start]
             vis_i = vis_i[:end - start]
             logits_i, spf_i = self._apply_sam(
-                traj_i, vis_i, embeddings[start:end], (h, w))
+                traj_i, vis_i, emb_map(lambda e: e[start:end], embeddings),
+                (h, w))
             self.reinit_windows.append(
                 (direction, start, end, int(tracked.sum())))
             pred_masks_i = logits_i > 0  # [m_i, end - start, h, w]

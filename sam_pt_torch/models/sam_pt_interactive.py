@@ -372,7 +372,7 @@ class SamPtInteractive(SamPt):
             lbl[bi, :k] = labels[visible]
         has_pos = (lbl == 1).any(axis=1)
 
-        device = embeddings.device
+        device = self.device
         logits, iou = self._decode_all_pairs(
             embeddings, torch.as_tensor(frame_idxs, device=device),
             torch.from_numpy(pts).to(device), torch.from_numpy(lbl).to(device),

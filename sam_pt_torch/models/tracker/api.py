@@ -43,7 +43,9 @@ def encode_in_chunks(encode: Callable[[torch.Tensor], torch.Tensor],
                      ) -> torch.Tensor:
     """`encode` over a [T, H, W, 3] video in chunks of `chunk` frames (the
     last padded with its final frame, so every call has one shape), each
-    chunk cast to float32 and resized to `target_hw` where that differs.
+    chunk cast to float32 and resized to `target_hw` where that differs
+    (by the dense weight matrices: a point tracker carries a last-bit
+    difference of its input into its trajectories).
     Returns the encodings of the T frames, concatenated."""
     out = []
     for i in range(0, video.shape[0], chunk):
@@ -53,6 +55,6 @@ def encode_in_chunks(encode: Callable[[torch.Tensor], torch.Tensor],
             frames = torch.cat([frames, frames[-1:].expand(pad, -1, -1, -1)])
         x = frames.float()
         if target_hw is not None and tuple(target_hw) != tuple(x.shape[1:3]):
-            x = resize_bilinear(x, target_hw)
+            x = resize_bilinear(x, target_hw, dense=True)
         out.append(encode(x)[:chunk - pad])
     return torch.cat(out)

@@ -74,7 +74,7 @@ class BasicEncoder(nn.Module):
         c = self.layer3(b)
         d = self.layer4(c)
         feats = [resize_bilinear(t, target, align_corners=True, h_axis=-2,
-                                 w_axis=-1) for t in (a, b, c, d)]
+                                 w_axis=-1, dense=True) for t in (a, b, c, d)]
         x = F.relu(instance_norm(self.conv2(torch.cat(feats, dim=1))))
         return self.conv3(x).permute(0, 2, 3, 1)
 

@@ -18,29 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....ops.sampling import separable_neighborhood_sample
+from ...batch_norm import InferenceBatchNorm
 from ..pips.model import instance_norm
-
-
-class InferenceBatchNorm(nn.Module):
-    """BatchNorm2d at inference: (x - mean) * rsqrt(var + 1e-5) * weight +
-    bias, with the running statistics as buffers."""
-
-    def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def reset_running_stats(self) -> None:
-        self.running_mean.zero_()
-        self.running_var.fill_(1.0)
-
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None])
 
 
 class InstanceNorm(nn.Module):

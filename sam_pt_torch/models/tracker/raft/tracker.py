@@ -18,8 +18,9 @@ import torch.nn.functional as F
 
 from ....ops.sampling import bilinear_sample_nchw
 from ....utils.checkpoint import load_or_randomize_
+from ...batch_norm import reset_batch_norm_stats_
 from ..api import PointTracker
-from .model import InferenceBatchNorm, Raft
+from .model import Raft
 
 
 class RaftPointTracker(PointTracker):
@@ -34,11 +35,7 @@ class RaftPointTracker(PointTracker):
         if not load_or_randomize_(self.model, checkpoint_path,
                                   allow_random_init=allow_random_init,
                                   seed=seed, device=device):
-            # Random running variances would be negative: keep the
-            # statistics of an untrained BatchNorm.
-            for m in self.model.modules():
-                if isinstance(m, InferenceBatchNorm):
-                    m.reset_running_stats()
+            reset_batch_norm_stats_(self.model)
         self.model.to(dtype).eval().requires_grad_(False)
 
     def compute_flows(self, frames: torch.Tensor):

@@ -2,8 +2,10 @@
 package's parameter trees.
 
 The port's modules use the public checkpoint names (`segment_anything` for
-SAM, CoTracker v1, PIPS, PIPS++ and RAFT for the trackers), so a public
-checkpoint loads into them as it is (`load_or_randomize_`). The
+SAM, `segment_anything_hq` for HQ-SAM, MobileSAM's for TinyViT, CoTracker
+v1, PIPS, PIPS++ and RAFT for the trackers), so a public checkpoint loads
+into them as it is (`load_or_randomize_`; a HuggingFace `transformers` SAM
+file through `hf_sam_to_sam_state_dict`). The
 `*_state_dict_from_jax` functions are the inverses of the JAX package's
 converters (`convert_sam_state_dict`, `convert_cotracker_state_dict`,
 `convert_pips_state_dict`, `convert_pips2_state_dict`,
@@ -83,12 +85,71 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k.removeprefix("module."): v for k, v in sd.items()}
 
 
+# HuggingFace `transformers` SamModel prefixes -> `segment_anything`'s, in
+# the order they are tried (the JAX package's `hf_sam_to_sam_state_dict`).
+_HF_SAM_RENAMES = (
+    ("vision_encoder.patch_embed.projection.",
+     "image_encoder.patch_embed.proj."),
+    ("vision_encoder.neck.conv1.", "image_encoder.neck.0."),
+    ("vision_encoder.neck.layer_norm1.", "image_encoder.neck.1."),
+    ("vision_encoder.neck.conv2.", "image_encoder.neck.2."),
+    ("vision_encoder.neck.layer_norm2.", "image_encoder.neck.3."),
+    ("vision_encoder.", "image_encoder."),
+    ("prompt_encoder.shared_embedding.positional_embedding",
+     "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    ("prompt_encoder.point_embed.", "prompt_encoder.point_embeddings."),
+    ("prompt_encoder.mask_embed.conv1.", "prompt_encoder.mask_downscaling.0."),
+    ("prompt_encoder.mask_embed.layer_norm1.",
+     "prompt_encoder.mask_downscaling.1."),
+    ("prompt_encoder.mask_embed.conv2.", "prompt_encoder.mask_downscaling.3."),
+    ("prompt_encoder.mask_embed.layer_norm2.",
+     "prompt_encoder.mask_downscaling.4."),
+    ("prompt_encoder.mask_embed.conv3.", "prompt_encoder.mask_downscaling.6."),
+    ("mask_decoder.upscale_conv1.", "mask_decoder.output_upscaling.0."),
+    ("mask_decoder.upscale_layer_norm.", "mask_decoder.output_upscaling.1."),
+    ("mask_decoder.upscale_conv2.", "mask_decoder.output_upscaling.3."),
+    ("mask_decoder.transformer.layer_norm_final_attn.",
+     "mask_decoder.transformer.norm_final_attn."),
+)
+
+
+def hf_sam_to_sam_state_dict(hf_sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A HuggingFace `transformers` SamModel state dict (`vision_encoder.*`
+    keys, the facebook/sam-vit-* files) -> the `segment_anything` layout
+    the port's modules use (a copy of the JAX package's key map)."""
+    out: Dict[str, Any] = {}
+    for key, value in hf_sd.items():
+        if key.startswith("shared_image_embedding."):
+            continue  # a copy of prompt_encoder.shared_embedding
+        k = re.sub(r"^vision_encoder\.layers\.(\d+)\.",
+                   r"vision_encoder.blocks.\1.", key)
+        k = re.sub(r"(\.(?:blocks|layers)\.\d+)\.layer_norm(\d)\.",
+                   r"\1.norm\2.", k)
+        # SamFeedForward (proj_in, layers.k, proj_out) -> MLP layers.0..2
+        m = re.match(r"^(mask_decoder\.(?:output_hypernetworks_mlps\.\d+|"
+                     r"iou_prediction_head))\.(proj_in|proj_out|layers\.(\d+))"
+                     r"\.(.*)$", k)
+        if m:
+            j = {"proj_in": 0, "proj_out": 2}.get(m.group(2))
+            if j is None:
+                j = 1 + int(m.group(3))
+            k = f"{m.group(1)}.layers.{j}.{m.group(4)}"
+        for src, dst in _HF_SAM_RENAMES:
+            if k.startswith(src):
+                k = dst + k[len(src):]
+                break
+        out[k] = value
+    return out
+
+
 def load_or_randomize_(model: nn.Module, checkpoint_path: Optional[str], *,
                        allow_random_init: bool, seed: int,
                        device: Union[str, torch.device]) -> bool:
     """Move `model` to `device` and give it weights: the public checkpoint
     at `checkpoint_path` (a file, or a PIPS step directory) loaded as it
-    is, or, where there is none and `allow_random_init` is set,
+    is (a HuggingFace SAM file, with `vision_encoder.` keys, converted to
+    the `segment_anything` layout first), or, where there is none and
+    `allow_random_init` is set,
     N(0, 0.02^2) draws from a generator on `device` seeded with `seed`.
     Every parameter and buffer must be in the checkpoint; keys the model
     does not have (BatchNorm's step counters) are ignored. Returns whether
@@ -97,6 +158,8 @@ def load_or_randomize_(model: nn.Module, checkpoint_path: Optional[str], *,
     model.to(device)
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
         sd = load_torch_state_dict(checkpoint_path)
+        if any(k.startswith("vision_encoder.") for k in sd):
+            sd = hf_sam_to_sam_state_dict(sd)
         keys = set(model.state_dict())
         if keys - set(sd):
             raise KeyError(f"{checkpoint_path} lacks "
@@ -208,12 +271,60 @@ def vit_encoder_state_dict_from_jax(enc: Dict[str, Any],
     return sd
 
 
+def tinyvit_encoder_state_dict_from_jax(enc: Dict[str, Any],
+                                        prefix: str = "image_encoder."
+                                        ) -> Dict[str, torch.Tensor]:
+    """JAX TinyViT tree -> MobileSAM's `image_encoder.*` state dict (the
+    inverse of the JAX package's `_convert_tinyvit_encoder`): its stage-s
+    merge is MobileSAM's `layers.{s-1}.downsample`."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def convbn(dst, node):
+        _conv(sd, f"{dst}.c", node["conv"])
+        sd[f"{dst}.bn.weight"] = _t(node["bn_scale"])
+        sd[f"{dst}.bn.bias"] = _t(node["bn_bias"])
+        sd[f"{dst}.bn.running_mean"] = _t(node["bn_mean"])
+        sd[f"{dst}.bn.running_var"] = _t(node["bn_var"])
+
+    convbn(f"{prefix}patch_embed.seq.0", enc["patch_embed_conv1"])
+    convbn(f"{prefix}patch_embed.seq.2", enc["patch_embed_conv2"])
+    for i in range(_count(enc, "stage0_block")):
+        for name in ("conv1", "conv2", "conv3"):
+            convbn(f"{prefix}layers.0.blocks.{i}.{name}",
+                   enc[f"stage0_block{i}"][name])
+    for s in range(1, 4):
+        for name in ("conv1", "conv2", "conv3"):
+            convbn(f"{prefix}layers.{s - 1}.downsample.{name}",
+                   enc[f"merge{s}"][name])
+        for i in range(_count(enc, f"stage{s}_block")):
+            blk, dst = enc[f"stage{s}_block{i}"], f"{prefix}layers.{s}.blocks.{i}"
+            _norm(sd, f"{dst}.attn.norm", blk["attn"]["norm"])
+            _lin(sd, f"{dst}.attn.qkv", blk["attn"]["qkv"])
+            _lin(sd, f"{dst}.attn.proj", blk["attn"]["proj"])
+            sd[f"{dst}.attn.attention_biases"] = _t(
+                blk["attn"]["attention_biases"])
+            convbn(f"{dst}.local_conv", blk["local_conv"])
+            _norm(sd, f"{dst}.mlp.norm", blk["mlp_norm"])
+            _lin(sd, f"{dst}.mlp.fc1", blk["mlp_fc1"])
+            _lin(sd, f"{dst}.mlp.fc2", blk["mlp_fc2"])
+    _conv(sd, f"{prefix}neck.0", enc["neck_conv1"])
+    _conv(sd, f"{prefix}neck.2", enc["neck_conv2"])
+    for j, name in ((1, "neck_ln1"), (3, "neck_ln2")):
+        _norm(sd, f"{prefix}neck.{j}", enc[name], "weight")
+    return sd
+
+
 def sam_state_dict_from_jax(params: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
-    """JAX `Sam` parameter tree -> the port's (= segment_anything's) SAM
-    state dict, without the head-dim pad of the global blocks."""
+    """JAX `Sam` parameter tree -> the port's SAM state dict, in the public
+    layout of its family (`segment_anything` without the head-dim pad of
+    the global blocks, MobileSAM's TinyViT, `segment_anything_hq`'s HQ
+    decoder)."""
     p = _root(params)
-    sd = vit_encoder_state_dict_from_jax(p["image_encoder"])
+    if "patch_embed_conv1" in p["image_encoder"]:
+        sd = tinyvit_encoder_state_dict_from_jax(p["image_encoder"])
+    else:
+        sd = vit_encoder_state_dict_from_jax(p["image_encoder"])
 
     def convt(dst, node):
         k = _np(node["kernel"])[::-1, ::-1]
@@ -269,6 +380,23 @@ def sam_state_dict_from_jax(params: Dict[str, Any]
     for j in range(3):
         _lin(sd, f"mask_decoder.iou_prediction_head.layers.{j}",
              dec["iou_prediction_head"][f"layers_{j}"])
+    if "hf_token" in dec:  # HQ-SAM
+        sd["mask_decoder.hf_token.weight"] = _t(dec["hf_token"])
+        for j in range(3):
+            _lin(sd, f"mask_decoder.hf_mlp.layers.{j}",
+                 dec["hf_mlp"][f"layers_{j}"])
+        for dst, name, transposed in (
+                ("embedding_encoder", "embedding_encoder", True),
+                ("compress_vit_feat", "compress_vit", True),
+                ("embedding_maskfeature", "maskfeature", False)):
+            first, second = (f"mask_decoder.{dst}.0", f"mask_decoder.{dst}.3")
+            if transposed:
+                convt(first, dec[f"{name}_conv1"])
+                convt(second, dec[f"{name}_conv2"])
+            else:
+                _conv(sd, first, dec[f"{name}_conv1"])
+                _conv(sd, second, dec[f"{name}_conv2"])
+            _norm(sd, f"mask_decoder.{dst}.1", dec[f"{name}_ln"], "weight")
     return sd
 
 

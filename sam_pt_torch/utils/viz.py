@@ -1,10 +1,12 @@
-"""Prediction visualisation: mask overlays, trajectory points, video export
-(counterpart of `add_mask_to_frame`, `draw_points`, `render_predictions`
-and `save_video` in `sam_pt_tpu/utils/viz.py`).
+"""Prediction visualisation: mask overlays, trajectory points, video and
+frame export (counterpart of `add_mask_to_frame`, `draw_points`,
+`render_predictions`, `save_video` and `save_frames` in
+`sam_pt_tpu/utils/viz.py`).
 
 Per-mask coloured alpha overlays and per-point markers coloured by
 PointVisibilityType (VISIBILITY_TO_COLOR), saved as mp4 (cv2) or gif
-(Pillow). Points are drawn only where cv2 is installed; Pillow is imported
+(Pillow), or frame by frame as PNGs (the port's own codec, on every
+machine). Points are drawn only where cv2 is installed; Pillow is imported
 where a gif is written.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..vos_eval.data.image_io import write_png
 from .util import VISIBILITY_TO_COLOR, PointVisibilityType
 
 try:
@@ -106,3 +109,12 @@ def save_video(frames: np.ndarray, path: str, fps: int = 10) -> None:
     for f in frames:
         writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
     writer.release()
+
+
+def save_frames(frames: np.ndarray, out_dir: str, prefix: str = "") -> None:
+    """[T, H, W, 3] uint8 RGB frames as `<prefix><t:05d>.png` files under
+    `out_dir` (the JAX package writes JPEGs through cv2; PNGs need
+    neither cv2 nor Pillow)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i, frame in enumerate(frames):
+        write_png(os.path.join(out_dir, f"{prefix}{i:05d}.png"), frame)

@@ -71,6 +71,20 @@ ROWS = {
         _bytes((12, 4096, 128), (12, 325, 128), (12, 325, 128),
                (12, 4096, 128), extra=12 * 325),
         1.06, 27.2, 0.00811, "bytes"),
+    # the HQ phase's refinement passes: a decode chunk of 32 pairs, 42
+    # token keys (6 output tokens with the HQ token, a mask's 17 points,
+    # the other object's 16 positives, 2 box corners, the pad), the pad
+    # masked in the image->token direction (41 valid keys)
+    "K3 HQ token->image": (
+        (32 * 8, 42, 4096, 16),
+        _bytes((32, 42, 128), (32, 4096, 128), (32, 4096, 128),
+               (32, 42, 128)),
+        2.82, 67.8, 0.02024, "bytes"),
+    "K3 HQ image->token": (
+        (32 * 8, 4096, 41, 16),
+        _bytes((32, 4096, 128), (32, 42, 128), (32, 42, 128),
+               (32, 4096, 128), extra=32 * 42),
+        2.75, 67.8, 0.02024, "bytes"),
 }
 
 
@@ -153,10 +167,11 @@ def test_library_yardstick_computes_the_kernels_function(name):
 # kernel_phase's report: case -> the numbers of `chip_smoke.TIMES`.
 CASES = ("window", "global", "cross", "cross_masked", "cross_unmasked",
          "relpos", "relpos_window", "window_vit_b", "global_vit_b",
-         "global_crop", "cross_interactive")
+         "global_crop", "cross_interactive", "cross_hq", "cross_hq_masked")
 CROP_LAUNCHES = {"window": 168, "global": 24, "cross": 70, "relpos": 0}
 INTERACTIVE_LAUNCHES = {"window": 48, "global": 24, "cross": 15400,
                         "relpos": 0}
+HQ_LAUNCHES = {"window": 168, "global": 24, "cross": 140, "relpos": 0}
 SECOND_CASE = {"cross": ("cross_masked", "_image_to_token"),
                "relpos": ("relpos_window", "_window")}
 # Cases whose error counts in a row without their times.
@@ -179,7 +194,7 @@ def test_kernel_json_rows_carry_both_timers(key):
     launches = {"window": 420, "global": 60, "cross": 280, "relpos": 0}
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, launches, {"relpos": 1}, {"window": 48, "global": 24},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
     row = rows[f"{key}_attention"]
     assert {"name", "route", "source", "replaces", "launches",
             "max_abs_err"} <= set(row)
@@ -203,7 +218,7 @@ def test_kernel_json_vit_b_rows(key):
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
     row = rows[f"{key}_attention_vit_b"]
     assert row["launches"] == {"window": 48, "global": 24}[key]
     assert (row["source"], row["replaces"]) == chip_smoke.KERNEL_SOURCES[key]
@@ -224,7 +239,7 @@ def test_kernel_json_rows_of_this_slice(name, case, key, launches):
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
     row = rows[name]
     assert row["launches"] == launches
     assert (row["route"], row["source"], row["replaces"]) == (
@@ -232,6 +247,52 @@ def test_kernel_json_rows_of_this_slice(name, case, key, launches):
     assert row["max_abs_err"] == report[case]["max_abs_err"]
     for f in chip_smoke.TIMES:
         assert row[f] == report[case][f]
+
+
+def test_kernel_json_hq_row():
+    """K3 with the HQ token: token->image and, suffixed, image->token at
+    the HQ phase's shapes, both errors counted, the HQ phase's K3
+    launches (both directions, as the row says), every key of the
+    contract."""
+    report = _report()
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
+        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
+    row = rows["cross_attention_hq"]
+    assert row["launches"] == 140
+    assert row["launches_of"] == "token_to_image + image_to_token"
+    assert (row["route"], row["source"], row["replaces"]) == (
+        "cuda", *chip_smoke.KERNEL_SOURCES["cross"])
+    assert row["max_abs_err"] == max(report["cross_hq"]["max_abs_err"],
+                                     report["cross_hq_masked"]["max_abs_err"])
+    for f in chip_smoke.TIMES:
+        assert row[f] == report["cross_hq"][f]
+        assert row[f + "_image_to_token"] == report["cross_hq_masked"][f]
+
+
+def test_hq_shapes_stay_on_the_image_to_token_kernel():
+    """42 token keys in the HQ phase's refinement passes, the pad slot
+    masked: at most 64 keys, K3's image->token kernel takes them."""
+    assert chip_smoke.hq_tokens() == 42 <= 64
+    valid = chip_smoke.hq_key_mask(2, "cpu")
+    assert valid.shape == (2, 42) and int(valid[0].sum()) == 41
+    assert not valid[0, -1]
+
+
+def test_launch_schedule_of_tiny_vit():
+    """TinyViT runs no kernel: K3 only."""
+    from types import SimpleNamespace
+
+    from sam_pt_torch.models.sam.tiny_vit import TinyViT
+
+    sam_pt = SimpleNamespace(
+        sam_encode_chunk=4, sam_decode_chunk=32,
+        iterative_refinement_iterations=12,
+        sam_predictor=SimpleNamespace(model=SimpleNamespace(
+            image_encoder=TinyViT(img_size=64))))
+    assert chip_smoke.launch_schedule(sam_pt, [24], [48]) == {
+        "window": 0, "global": 0, "cross": 140, "relpos": 0}
 
 
 def test_shapes_of_this_slice():
@@ -388,5 +449,67 @@ def test_interactive_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     for line in ("histories and pickles written", "4 written masks equal "
                  "the direct forward's", "one point: launches"):
+        assert line in out
+    assert "FAIL" not in out
+
+
+def _tiny_variant(name):
+    """The tiny SamPt with the SAM of a variant config in its place: the
+    tiny ViT (HQ-SAM's decoder for `samhq_*`) or TinyViT at 64 pixels."""
+    from sam_pt_torch.models.sam.predictor import SamPredictor
+    from sam_pt_torch.models.sam.sam_model import Sam
+    from sam_pt_torch.models.batch_norm import reset_batch_norm_stats_
+    from sam_pt_torch.utils.checkpoint import randomize_
+    from sam_pt_torch.utils.testing import TINY_VIT, build_tiny_sam_pt
+
+    sam_pt = build_tiny_sam_pt(device="cpu", positive_points_per_mask=16,
+                               negative_points_per_mask=1,
+                               iterative_refinement_iterations=2)
+    encoder = "vit_t" if name.endswith("vit_tiny") else TINY_VIT
+    sam = Sam(encoder, image_size=64, use_hq=name.startswith("samhq"))
+    sam = randomize_(sam, torch.Generator().manual_seed(0))
+    sam_pt.sam_predictor = SamPredictor(
+        reset_batch_norm_stats_(sam).eval().requires_grad_(False))
+    chip_smoke.bias_for_a_live_run(sam_pt)
+    return sam_pt
+
+
+def test_variant_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phases 15 and 16 on the CPU with tiny stand-ins for HQ-SAM ViT-H,
+    ViT-B, MobileSAM and Light HQ-SAM: launches, output checks, the
+    reference checks (`interm` included), TinyViT against float32 and the
+    encode times in turns."""
+    from sam_pt_torch.vos_eval.eval import device_fuse_index_masks
+
+    _rehearsal(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "compose_model", _tiny_variant)
+    launches = chip_smoke.hq_phase(fa, device_fuse_index_masks, "the CPU",
+                                   False)
+    found = chip_smoke.mobile_phase(fa, device_fuse_index_masks, "the CPU",
+                                    False)
+    out = capsys.readouterr().out
+    assert launches == {k: 0 for k in fa.LAUNCHES}
+    assert set(found) == {"sam_mobile_vit_tiny", "samhq_light_vit_tiny"}
+    for line in ("hq reference: encoder embeddings kernels vs plain rel_l2 "
+                 "emb", "interm", "TinyViT bf16 vs float32 weights",
+                 "TinyViT / ViT-B", "samhq_light_vit_tiny: timed pass"):
+        assert line in out
+    assert "FAIL" not in out
+
+
+def test_demo_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 17 on the CPU with the tiny SamPt, 4 frames at 48 x 80 and
+    no resize: main's overlays, its masks and tracks against the direct
+    forward, the `python -m` entry point as a subprocess."""
+    _rehearsal(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "DEMO_FRAMES", 4)
+    launches = chip_smoke.demo_phase(fa, "the CPU", model=(
+        "device=cpu", "model=sam_pt_tiny_test", "longest_side_length=null"))
+    out = capsys.readouterr().out
+    assert launches == {k: 0 for k in fa.LAUNCHES}
+    for line in ("demo: main over 4 PNG frames 48 x 80 resized to 48 x 80",
+                 "4 frames written", "equal the direct forward's: True",
+                 "python -m sam_pt_torch.demo exit 0",
+                 "Inference: 4 frames"):
         assert line in out
     assert "FAIL" not in out

@@ -131,11 +131,17 @@ def test_build_predictor_missing_checkpoint(tmp_path, tiny_variant):
     assert a.model.dtype == torch.bfloat16
     w = a.model.image_encoder.blocks[0].attn.qkv.weight.float()
     assert 0.015 < float(w.std()) < 0.025
-    for bad in (dict(hq=True), dict(variant="vit_t")):
-        with pytest.raises(NotImplementedError):
-            factory.build_predictor(**dict(dict(
-                variant=tiny_variant, allow_random_init=True, device="cpu"),
-                **bad))
+    # HQ-SAM's decoder and TinyViT (MobileSAM) are ported: they build; a
+    # variant no config names is refused.
+    hq = factory.build_predictor(tiny_variant, image_size=64, hq=True,
+                                 allow_random_init=True, device="cpu")
+    assert type(hq.model.mask_decoder).__name__ == "MaskDecoderHQ"
+    tiny = factory.build_predictor("vit_t", image_size=64,
+                                   allow_random_init=True, device="cpu")
+    assert type(tiny.model.image_encoder).__name__ == "TinyViT"
+    with pytest.raises(ValueError, match="unknown SAM variant"):
+        factory.build_predictor("vit_x", allow_random_init=True,
+                                device="cpu")
 
 
 @pytest.mark.parametrize("name", ["build_predictor", "pips", "pips_plus_plus",

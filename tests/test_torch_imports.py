@@ -1,9 +1,10 @@
 """The port imports torch and never jax (nor the JAX package, nor
-scikit-learn); its kernel modules build nothing at import;
-`chip_smoke.py` refuses to run without a CUDA device. The port's CLI runs
-where jax, the JAX package, PyYAML, Pillow, pandas, cv2, scikit-learn and
-matplotlib cannot be imported (as on a machine that has only torch, numpy
-and scipy). CoTracker's tracker takes the keys of its YAML."""
+scikit-learn, nor transformers); its kernel modules build nothing at
+import; `chip_smoke.py` refuses to run without a CUDA device. The port's
+CLI and its demo run where jax, the JAX package, PyYAML, Pillow, pandas,
+cv2, scikit-learn and matplotlib cannot be imported (as on a machine that
+has only torch, numpy and scipy). CoTracker's tracker takes the keys of
+its YAML."""
 import os
 import subprocess
 import sys
@@ -22,9 +23,12 @@ SLICE_MODULES = [
     "sam_pt_torch.ops.resize",
     "sam_pt_torch.ops.sampling",
     "sam_pt_torch.ops.color",
+    "sam_pt_torch.models.batch_norm",
     "sam_pt_torch.models.sam.image_encoder",
     "sam_pt_torch.models.sam.prompt_encoder",
     "sam_pt_torch.models.sam.mask_decoder",
+    "sam_pt_torch.models.sam.mask_decoder_hq",
+    "sam_pt_torch.models.sam.tiny_vit",
     "sam_pt_torch.models.sam.sam_model",
     "sam_pt_torch.models.sam.predictor",
     "sam_pt_torch.models.sam.factory",
@@ -59,6 +63,7 @@ SLICE_MODULES = [
     "sam_pt_torch.vos_eval.data.mask_mapper",
     "sam_pt_torch.vos_eval.data.video_reader",
     "sam_pt_torch.vos_eval.data.test_datasets",
+    "sam_pt_torch.demo",
 ]
 # Importable here but not on every machine the port runs on.
 BLOCKED = ["jax", "flax", "sam_pt_tpu", "yaml", "PIL", "pandas", "cv2",
@@ -79,6 +84,8 @@ def test_port_never_imports_jax():
             "assert 'flax' not in sys.modules, 'flax was imported'\n"
             "assert 'sam_pt_tpu' not in sys.modules, 'JAX package imported'\n"
             "assert 'sklearn' not in sys.modules, 'scikit-learn imported'\n"
+            "assert 'transformers' not in sys.modules, "
+            "'transformers imported'\n"
             "import sam_pt_torch.ops._cuda as c\n"
             "assert c._LIB is None, 'kernels built at import'\n"
             "print('ok')\n")
@@ -109,6 +116,48 @@ def test_chip_smoke_needs_a_card():
     assert '"ok": true' not in proc.stdout
 
 
+def _blocking_stubs(root) -> str:
+    """A directory of packages named as BLOCKED that raise ImportError."""
+    stubs = root / "stubs"
+    for name in BLOCKED:
+        os.makedirs(stubs / name)
+        (stubs / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    return str(stubs)
+
+
+def test_demo_runs_without_cv2_pillow_or_jax(tmp_path):
+    """`python -m sam_pt_torch.demo` on the CPU over a PNG frame directory
+    with the tiny SamPt, every module of BLOCKED raising ImportError: the
+    longest-side resize without cv2, the overlays written as PNGs."""
+    from sam_pt_torch.vos_eval.data.image_io import read_rgb, write_png
+
+    stubs = _blocking_stubs(tmp_path)
+    rng = np.random.default_rng(1)
+    frames = tmp_path / "frames"
+    os.makedirs(frames)
+    for t in range(3):
+        write_png(str(frames / f"{t:05d}.png"),
+                  rng.integers(0, 255, (30, 40, 3)).astype(np.uint8))
+    points = tmp_path / "points.txt"
+    points.write_text("1\n0 ; 10,10 30,20\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([stubs, ROOT]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "sam_pt_torch.demo", "device=cpu",
+         "model=sam_pt_tiny_test", f"frames_path={frames}",
+         f"query_points_path={points}", "longest_side_length=64",
+         f"output_dir={tmp_path / 'out'}"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Inference: 3 frames" in proc.stdout
+    written = sorted(os.listdir(tmp_path / "out" / "frames"))
+    assert written == [f"{t:05d}.png" for t in range(3)]
+    assert read_rgb(str(tmp_path / "out" / "frames" / written[0])).shape == (
+        48, 64, 3)
+
+
 def test_cli_runs_without_jax_yaml_pillow_or_pandas(tmp_path):
     """`python -m sam_pt_torch.vos_eval.eval` on the CPU over a tiny
     PNG-framed DAVIS tree (labels 2 and 5), with the tiny SamPt, where
@@ -116,11 +165,7 @@ def test_cli_runs_without_jax_yaml_pillow_or_pandas(tmp_path):
     run and writes the masks."""
     from sam_pt_torch.vos_eval.data.image_io import read_png, write_png
 
-    stubs = tmp_path / "stubs"
-    for name in BLOCKED:
-        os.makedirs(stubs / name)
-        (stubs / name / "__init__.py").write_text(
-            f"raise ImportError('{name} is blocked')\n")
+    stubs = _blocking_stubs(tmp_path)
     rng = np.random.default_rng(0)
     tree = tmp_path / "DAVIS"
     frames = tree / "trainval" / "JPEGImages" / "480p" / "v"
@@ -139,7 +184,7 @@ def test_cli_runs_without_jax_yaml_pillow_or_pandas(tmp_path):
     os.makedirs(tree / "trainval" / "ImageSets" / "2017")
     (tree / "trainval" / "ImageSets" / "2017" / "val.txt").write_text("v\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-               PYTHONPATH=os.pathsep.join([str(stubs), ROOT]))
+               PYTHONPATH=os.pathsep.join([stubs, ROOT]))
     proc = subprocess.run(
         [sys.executable, "-m", "sam_pt_torch.vos_eval.eval", "device=cpu",
          "size=-1", "model=sam_pt_tiny_test", f"d17_path={tree}",

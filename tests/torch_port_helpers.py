@@ -211,6 +211,21 @@ def random_raft_state_dict(seed: int = 0, flow_scale: float = 0.05
     return as_float32(sd)
 
 
+def random_hq_state_dict(seed: int = 0, vit_dim: int = 32,
+                         pdim: int = 256) -> Dict[str, np.ndarray]:
+    """The keys `segment_anything_hq` adds to a SAM state dict (numpy
+    float32, `random_like`'s draws): the HQ token, its MLP and the three
+    feature blocks, for early features of width `vit_dim`."""
+    from sam_pt_torch.models.sam.mask_decoder_hq import MaskDecoderHQ
+
+    state = MaskDecoderHQ(pdim, vit_dim).state_dict()
+    extra = ("hf_token", "hf_mlp", "compress_vit_feat", "embedding_encoder",
+             "embedding_maskfeature")
+    sd = random_like({k: v for k, v in state.items()
+                      if k.startswith(extra)}, seed)
+    return {f"mask_decoder.{k}": v for k, v in as_float32(sd).items()}
+
+
 def torch_sd(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v.copy()) for k, v in sd.items()}
 
@@ -234,12 +249,13 @@ TINY_TRACKER = dict(interp_shape=(32, 40), visibility_threshold=0.5,
                     iters=1)
 
 
-def tiny_sam_pt_pair(tracker: str = "cotracker", **settings
-                     ) -> Tuple[object, object]:
+def tiny_sam_pt_pair(tracker: str = "cotracker", hq: bool = False,
+                     **settings) -> Tuple[object, object]:
     """(JAX SamPt, port SamPt) on the same random weights, float32: the
-    tiny SAM (seed 17) and, by `tracker`, the tiny CoTracker (seed 18,
-    most points visible) or PIPS at its published widths (seed 18, stride
-    4, points visible); TINY_SAM_PT_SETTINGS updated by `settings`."""
+    tiny SAM (seed 17; with `hq`, HQ-SAM's decoder, seed 19) and, by
+    `tracker`, the tiny CoTracker (seed 18, most points visible) or PIPS at
+    its published widths (seed 18, stride 4, points visible);
+    TINY_SAM_PT_SETTINGS updated by `settings`."""
     import sam_pt_tpu.utils.testing as jtesting
     from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
     from sam_pt_torch.models.sam.sam_model import Sam as TSam
@@ -251,14 +267,18 @@ def tiny_sam_pt_pair(tracker: str = "cotracker", **settings
     from sam_pt_tpu.utils.checkpoint import convert_sam_state_dict
 
     settings = dict(TINY_SAM_PT_SETTINGS, **settings)
-    sam_params = convert_sam_state_dict(random_sam_state_dict(seed=17))
+    sd = random_sam_state_dict(seed=17)
+    if hq:
+        sd.update(random_hq_state_dict(seed=19, vit_dim=32))
+    sam_params = convert_sam_state_dict(sd)
     jtracker, ttracker = (tiny_cotracker_pair() if tracker == "cotracker"
                           else pips_pair())
     jpredictor = JPredictor(
-        JSam(encoder_variant="vit_tiny_test", image_size=64), sam_params)
+        JSam(encoder_variant="vit_tiny_test", image_size=64, use_hq=hq),
+        sam_params)
     jsampt = JSamPt(jtracker, jpredictor, **settings)
 
-    tsam = TSam(jtesting.TINY_VIT, image_size=64)
+    tsam = TSam(jtesting.TINY_VIT, image_size=64, use_hq=hq)
     tsam.load_state_dict(sam_state_dict_from_jax(sam_params))
     tsampt = TSamPt(ttracker, TPredictor(tsam.eval().requires_grad_(False)),
                     **settings)

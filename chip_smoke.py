@@ -110,12 +110,40 @@ Phases, in order; any failure exits non-zero before the verdict line:
      24 overlay frames written, masks and tracks equal to a direct
      forward with the rng reset; then `python -m sam_pt_torch.demo` as a
      subprocess: exit 0, 24 frames, its frames/s line.
-Then one JSON line with the per-kernel numbers (rows of K1-K4 at the
-main path's shapes, K1/K2 at ViT-B's, `global_attention_crop` at phase
-13's grid, `image_to_token_interactive` at phase 14's 325 token keys and
-`cross_attention_hq` at phase 15's pairs and tokens, each held to its
-plain version in the kernel phase), and as the last line
-{"ok": true, "device": {...}}. The kernel phase alone:
+ 18. VIS phase: a synthetic UVO-format tree under the gitignored
+     `build/` (two videos of 16 PNG frames at 480 x 854, 2-3 textured
+     shapes moving over a dark background, a class-agnostic YTVIS JSON
+     whose ground-truth tracks are RLE), registered with
+     `register_dataset`; the port's `vis_eval_sam_pt` config composed
+     (SAM ViT-H bf16, one predictor shared by the automatic mask
+     generator and SamPt + PIPS; a 32 x 32 grid in batches of 64, the
+     config's gates, 100 masks) on random weights made live
+     (`vis_live_weights`); the generator's first batch with kernels
+     against the plain route (and its K3 token count against
+     `amg_tokens`); `evaluate`: launches equal to the schedule
+     (`vis_schedule`), the gates' survivors (the device's counts), 2-100
+     tracks a video, the 12 AP/AR stats finite or -1, SamPt's first
+     decode chunk of the run against the plain route, `results.json`
+     equal, record for record, to a direct adapter call with the rng
+     reset and decoding to its masks; the generator's seconds a frame,
+     SamPt's frames/s, `evaluate`'s fps (with --profile a stage split and
+     a profile of one video); the capacity run (`vis_capacity_run`: 100
+     masks over 8 frames, prompts past 1024 tokens, so K3 also runs the
+     decoder's head-dim-32 self-attention; launches, the first decode
+     chunk against the plain route); then `python -m
+     sam_pt_torch.vis_eval.eval` on `cuda` as a subprocess (one video,
+     the random weights as built, which keep no proposal: exit 0,
+     scored); the phase's own seconds. After it, K3 at the evaluate
+     run's prompt length (`vis_kernel_cases`) against its plain version.
+Then the script's seconds, one JSON line with the per-kernel numbers
+(rows of K1-K4 at the main path's shapes, K1/K2 at ViT-B's,
+`global_attention_crop` at phase 13's grid, `image_to_token_interactive`
+at phase 14's 325 token keys, `cross_attention_hq` at phase 15's pairs
+and tokens, `cross_attention_amg` at phase 18's generator batch,
+`cross_attention_vis` at its tracked prompts and `cross_attention_self`
+(K3 at head dim 32, the decoder's self-attention from 1024 tokens) at
+its capacity run's, each held to its plain version), and as the last
+line {"ok": true, "device": {...}}. The kernel phase alone:
 
     python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
 flash_attention as fa; chip_smoke.build_phase(); \
@@ -129,6 +157,7 @@ copy unpacked under the gitignored `build/`, run in turns):
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -316,6 +345,46 @@ def relpos_inputs(randn, b, kh, kw, d=80):
     return q, k, v, bias_h.contiguous(), bias_w.contiguous()
 
 
+def bf16_randn(device, seed: int):
+    """randn(*shape, std=1.0) -> a bf16 tensor on `device`, N(0, std^2)
+    from one generator seeded with `seed`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=g, device=device)
+                ).to(torch.bfloat16)
+    return randn
+
+
+def cross_pair_cases(fa, randn, valid) -> tuple:
+    """K3 in both directions of a decoder pass over b pairs whose prompt
+    has nt tokens, `valid` [b, nt] bool the image->token key mask: the
+    makers of the token->image case (nt tokens against 4096 image tokens)
+    and of the image->token case, as `kernel_cases` makes cases."""
+    b, nt = valid.shape
+    kc = dict(heads=8, divisor=4.0)
+
+    def token_to_image():
+        tok, k, v = randn(b, nt, 128), randn(b, 4096, 128), randn(
+            b, 4096, 128)
+        return (lambda: fa.cross_attention_cuda(tok, k, v, **kc),
+                lambda: fa.cross_attention_plain(tok, k, v, **kc),
+                library_cross(tok, k, v, **kc),
+                (tok, k, v), (b * 8, nt, 4096, 16))
+
+    def image_to_token():
+        img, k, v = randn(b, 4096, 128), randn(b, nt, 128), randn(b, nt, 128)
+        valid_u8 = valid.to(torch.uint8)
+        return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
+                                                **kc),
+                lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
+                                                 **kc),
+                library_cross(img, k, v, kv_valid=valid, **kc),
+                (img, k, v, valid_u8),
+                (b * 8, 4096, int(valid[0].sum()), 16))
+    return token_to_image, image_to_token
+
+
 def kernel_cases(fa, device) -> dict:
     """Name -> a function that makes one case at the main path's shapes:
     the kernel, its plain version and its library yardstick as calls, the
@@ -323,10 +392,7 @@ def kernel_cases(fa, device) -> dict:
     a time, so that each case's inputs (K2's and K4's masks are 2.1 GB)
     are freed before the next."""
     g = torch.Generator(device=device).manual_seed(1)
-
-    def randn(*shape, std=1.0):
-        return (std * torch.randn(shape, generator=g, device=device)
-                ).to(torch.bfloat16)
+    randn = bf16_randn(device, 1)
 
     # K1: 25 windows x 4 frames, 196 tokens; K2: 4 frames of 64 x 64
     # tokens. ViT-H: 16 heads x 80; ViT-B (the default model): 12 x 64.
@@ -412,44 +478,37 @@ def kernel_cases(fa, device) -> dict:
 
     # K3 image->token in the interactive phase's box refinements: a full
     # pass over INTERACTIVE_FRAMES frames, keys laid out as the decoder
-    # lays them (`interactive_key_mask`).
-    def cross_interactive():
-        b, nk = INTERACTIVE_FRAMES, interactive_tokens()
-        img, k, v = randn(b, 4096, 128), randn(b, nk, 128), randn(b, nk, 128)
-        valid = interactive_key_mask(b, device)
-        valid_u8 = valid.to(torch.uint8)
-        return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
-                                                **kc),
-                lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
-                                                 **kc),
-                library_cross(img, k, v, kv_valid=valid, **kc),
-                (img, k, v, valid_u8),
-                (b * 8, 4096, int(valid[0].sum()), 16))
+    # lays them (`interactive_key_mask`); in the HQ phase's refinement
+    # passes: a decode chunk of HQ_PAIRS pairs against hq_tokens() token
+    # keys (the HQ token the sixth output token), keys laid out as the
+    # decoder lays them; in the VIS phase's generator: a batch of
+    # AMG_PAIRS one-point prompts, amg_tokens() tokens, every one valid in
+    # the key mask the decoder passes.
+    _, cross_interactive = cross_pair_cases(
+        fa, randn, interactive_key_mask(INTERACTIVE_FRAMES, device))
+    cross_hq, cross_hq_masked = cross_pair_cases(
+        fa, randn, hq_key_mask(HQ_PAIRS, device))
+    cross_amg, cross_amg_masked = cross_pair_cases(
+        fa, randn, torch.ones((AMG_PAIRS, amg_tokens()), dtype=torch.bool,
+                              device=device))
 
-    # K3 in the HQ phase's refinement passes: a decode chunk of HQ_PAIRS
-    # pairs against hq_tokens() token keys (the HQ token the sixth output
-    # token), both directions, keys laid out as the decoder lays them.
-    def cross_hq():
-        b, nt = HQ_PAIRS, hq_tokens()
-        tok, k, v = randn(b, nt, 128), randn(b, 4096, 128), randn(
-            b, 4096, 128)
-        return (lambda: fa.cross_attention_cuda(tok, k, v, **kc),
-                lambda: fa.cross_attention_plain(tok, k, v, **kc),
-                library_cross(tok, k, v, **kc),
-                (tok, k, v), (b * 8, nt, 4096, 16))
-
-    def cross_hq_masked():
-        b, nt = HQ_PAIRS, hq_tokens()
-        img, k, v = randn(b, 4096, 128), randn(b, nt, 128), randn(b, nt, 128)
-        valid = hq_key_mask(b, device)
+    # K3 at head dim 32: the decoder's token self-attention, which takes
+    # K3 from 1024 tokens (the VIS path's prompts for 100 masks, as its
+    # capacity run tracks them: a refinement pass's vis_tokens() tokens,
+    # a decode chunk of 32 pairs), with a key mask.
+    def cross_self():
+        b, nt = 32, vis_tokens()
+        x, k, v = (randn(b, nt, 256) for _ in range(3))
+        valid = torch.rand((b, nt), generator=g, device=device) > 0.3
+        valid[:, :DECODER_TOKENS] = True
         valid_u8 = valid.to(torch.uint8)
-        return (lambda: fa.cross_attention_cuda(img, k, v, kv_valid=valid_u8,
-                                                **kc),
-                lambda: fa.cross_attention_plain(img, k, v, kv_valid=valid,
-                                                 **kc),
-                library_cross(img, k, v, kv_valid=valid, **kc),
-                (img, k, v, valid_u8),
-                (b * 8, 4096, int(valid[0].sum()), 16))
+        ks = dict(heads=8, divisor=32 ** 0.5)
+        return (lambda: fa.cross_attention_cuda(x, k, v, kv_valid=valid_u8,
+                                                **ks),
+                lambda: fa.cross_attention_plain(x, k, v, kv_valid=valid,
+                                                 **ks),
+                library_cross(x, k, v, kv_valid=valid, **ks),
+                (x, k, v, valid_u8), (b * 8, nt, int(valid[0].sum()), 32))
 
     return {"window": window, "global": global_, "cross": cross,
             "cross_masked": cross_masked,
@@ -460,7 +519,9 @@ def kernel_cases(fa, device) -> dict:
             "global_vit_b": lambda: global_(12, 64),
             "global_crop": global_crop,
             "cross_interactive": cross_interactive,
-            "cross_hq": cross_hq, "cross_hq_masked": cross_hq_masked}
+            "cross_hq": cross_hq, "cross_hq_masked": cross_hq_masked,
+            "cross_amg": cross_amg, "cross_amg_masked": cross_amg_masked,
+            "cross_self": cross_self}
 
 
 def crop_grid(image_size: int = 1024) -> tuple:
@@ -546,6 +607,11 @@ def hq_key_mask(b: int, device) -> torch.Tensor:
     return valid
 
 
+# The VIS phase's generator decodes a batch of `points_per_batch` (64)
+# one-point prompts at a time.
+AMG_PAIRS = 64
+
+
 def build_phase() -> None:
     """Build the kernels; print the time and ptxas's registers, shared
     memory and spills per kernel."""
@@ -586,8 +652,16 @@ def kernel_phase(fa, device, profiling: bool = False) -> dict:
             f"(occupancy calculator)")
         if blocks < 1:
             raise SystemExit("K3 image->token cannot run at SAM's heads")
+    return measure_cases(kernel_cases(fa, device), profiling)
+
+
+def measure_cases(cases: dict, profiling: bool = False) -> dict:
+    """Each case of `cases` (made as `kernel_cases` makes them), one at a
+    time: agreement with the plain version, times (with `profiling`, also
+    the profiler's device time), bound. Fails at the first case that
+    disagrees."""
     report = {}
-    for name, make in kernel_cases(fa, device).items():
+    for name, make in cases.items():
         kernel, plain, library, inputs, shape = make()
         got = kernel()
         torch.cuda.synchronize()
@@ -740,20 +814,10 @@ def check_outputs(out, masks, n_frames, n_masks, n_points, query_ts=None):
             f"visibilities {sorted(found)}")
 
 
-def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
-    """Encode chunk and decode chunk with kernels vs with plain versions
-    (every part of HQ-SAM's embeddings, `interm` included)."""
-    from sam_pt_torch.models.sam_pt import emb_map
-
-    predictor = sam_pt.sam_predictor
-    device = sam_pt.device
-    frames = torch.from_numpy(video["image"][:4]).to(device)
-    hw = (H, W)
-
-    def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
-
-    emb_k = predictor.encode_frames(frames, hw)
+@contextlib.contextmanager
+def plain_route(fa):
+    """The kernels' plain versions in their wrappers' place (K3's key mask
+    as bool), until the block ends."""
     plain = {
         "window_attention_cuda": fa.window_attention_plain,
         "global_attention_cuda": fa.global_attention_plain,
@@ -766,17 +830,60 @@ def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
     try:
         for name, fn in plain.items():
             setattr(fa, name, fn)
-        emb_p = predictor.encode_frames(frames, hw)
+        yield
     finally:
         for name, fn in saved.items():
             setattr(fa, name, fn)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def chain_check(sam_pt, fa, args, label: str, kernel_out=None) -> None:
+    """One decode chunk, `sam_pt._chain(*args)`, with the kernels (or
+    `kernel_out`, what a run computed with them) and with their plain
+    versions: IoU diff, mask agreement and rel. L2 of the logits (over the
+    pixels finite on both sides: float16 logits may overflow). Fails
+    unless IoU diff < 5e-2, agreement > 0.99 and rel. L2 < 5e-2."""
+    up_k, iou_k = kernel_out or sam_pt._chain(*args)
+    with plain_route(fa):
+        up_p, iou_p = sam_pt._chain(*args)
+    d_iou = float((iou_k - iou_p).abs().max())
+    agree = float(((up_k > 0) == (up_p > 0)).float().mean())
+    finite = torch.isfinite(up_k) & torch.isfinite(up_p)
+    rel = rel_l2(up_k[finite], up_p[finite])
+    ok = d_iou < 5e-2 and agree > 0.99 and rel < 5e-2
+    log(f"{label}: decode chain kernels vs plain: iou max diff {d_iou:.3e}, "
+        f"mask agreement {agree:.5f}, logits rel_l2 {rel:.3e} "
+        f"({int(finite.sum())}/{finite.numel()} finite on both sides) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: the kernel path disagrees with the plain "
+                         f"path")
+
+
+def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
+    """Encode chunk and decode chunk with kernels vs with plain versions
+    (every part of HQ-SAM's embeddings, `interm` included)."""
+    from sam_pt_torch.models.sam_pt import emb_map
+
+    predictor = sam_pt.sam_predictor
+    device = sam_pt.device
+    frames = torch.from_numpy(video["image"][:4]).to(device)
+    hw = (H, W)
+
+    emb_k = predictor.encode_frames(frames, hw)
+    with plain_route(fa):
+        emb_p = predictor.encode_frames(frames, hw)
     parts = (emb_k.keys() if isinstance(emb_k, dict) else [None])
-    errs = {k: rel(*(e if k is None else e[k] for e in (emb_k, emb_p)))
+    errs = {k: rel_l2(*(e if k is None else e[k] for e in (emb_k, emb_p)))
             for k in parts}
-    e = max(errs.values())
     log(f"{label}: encoder embeddings kernels vs plain rel_l2 "
         + ", ".join(f"{'' if k is None else k + ' '}{v:.3e}"
                     for k, v in errs.items()))
+    if not max(errs.values()) < 5e-2:
+        raise SystemExit("kernel path disagrees with the plain path")
 
     rng = np.random.default_rng(3)
     b = 8
@@ -785,20 +892,7 @@ def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
     lbl = torch.as_tensor(np.r_[[1] * 16, 0, -1][None].repeat(b, 0),
                           device=device)
     emb = emb_map(lambda x: x[torch.arange(b, device=device) % 4], emb_k)
-    up_k, iou_k = sam_pt._chain(emb, pts, lbl, hw)
-    try:
-        for name, fn in plain.items():
-            setattr(fa, name, fn)
-        up_p, iou_p = sam_pt._chain(emb, pts, lbl, hw)
-    finally:
-        for name, fn in saved.items():
-            setattr(fa, name, fn)
-    d_iou = float((iou_k - iou_p).abs().max())
-    agree = float(((up_k > 0) == (up_p > 0)).float().mean())
-    log(f"{label}: decode chain kernels vs plain: iou max diff {d_iou:.3e}, "
-        f"mask agreement {agree:.5f}, logits rel_l2 {rel(up_k, up_p):.3e}")
-    if not (e < 5e-2 and d_iou < 5e-2 and agree > 0.99):
-        raise SystemExit("kernel path disagrees with the plain path")
+    chain_check(sam_pt, fa, (emb, pts, lbl, hw), label)
 
 
 # The two routes of one Attention run the same flash body on the same bf16
@@ -903,35 +997,69 @@ def reinit_phase(fa, device, fuse, card: str, profiling: bool) -> None:
     torch.cuda.empty_cache()
 
 
+class Stages:
+    """Host seconds, calls and kernel launches of named calls, each between
+    two synchronisations (serialized): `wrap(owner, name, label)` replaces
+    the method or function `owner.name` until `restore()`; with `count`,
+    `counts[label]` sums `count(output)` over the calls."""
+
+    def __init__(self):
+        from sam_pt_torch.ops import flash_attention as fa
+
+        self.fa = fa
+        self.seconds, self.calls, self.launches = {}, {}, {}
+        self.counts = {}
+        self._saved = []
+
+    def wrap(self, owner, name: str, label: str, count=None) -> None:
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, vars(owner).get(name)))
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(self.fa.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[label] = (self.seconds.get(label, 0.0)
+                                   + time.perf_counter() - t0)
+            self.calls[label] = self.calls.get(label, 0) + 1
+            counts = self.launches.setdefault(label, {})
+            for k, v in self.fa.LAUNCHES.items():
+                counts[k] = counts.get(k, 0) + v - before[k]
+            if count is not None:
+                self.counts[label] = self.counts.get(label, 0) + count(out)
+            return out
+
+        setattr(owner, name, call)
+
+    def restore(self) -> None:
+        for owner, name, old in reversed(self._saved):
+            if old is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+        self._saved = []
+
+
 def stage_split(sam_pt, label: str, names, run, card: str) -> None:
     """One `run()` with the SamPt methods `names` timed on the host clock,
     each call between two synchronisations (serialized), then one
     `run()` under the profiler."""
-    stages = {}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return call
-
+    stages = Stages()
     for name in names:
-        setattr(sam_pt, name, timed(name, getattr(sam_pt, name)))
+        stages.wrap(sam_pt, name, name)
     try:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for name in names:
-            delattr(sam_pt, name)
+        stages.restore()
     log(f"profile {label}: serialized {total:.4f} s: " + ", ".join(
-        f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in stages.items())
-        + f", rest {total - sum(stages.values()):.4f}")
+        f"{k} {v:.4f} ({100 * v / total:.1f}%)"
+        for k, v in stages.seconds.items())
+        + f", rest {total - sum(stages.seconds.values()):.4f}")
     device_profile(label, run, card)
 
 
@@ -1557,39 +1685,18 @@ def one_point_schedule(sam_pt, frames: int, objects: int) -> dict:
     return expected
 
 
-def interactive_stages(sam_pt):
+def interactive_stages(sam_pt) -> Stages:
     """Time the interactive forward's stages on the host clock, each call
     between two synchronisations: the encode, the decodes (with their
-    downloads), the tracker runs and the new points' DBSCAN + k-medoids.
-    Returns the dict the (seconds, calls) accumulate in and a function
-    that undoes the timing."""
+    downloads), the tracker runs and the new points' DBSCAN + k-medoids."""
     from sam_pt_torch.models import sam_pt_interactive as module
 
-    stages = {}
-    methods = ("_encode_all_frames", "_predict_frames", "_track_points")
-    cluster = module.extract_largest_cluster_points
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            seconds, calls = stages.get(name, (0.0, 0))
-            stages[name] = (seconds + time.perf_counter() - t0, calls + 1)
-            return out
-        return call
-
-    def restore():
-        for name in methods:
-            delattr(sam_pt, name)
-        module.extract_largest_cluster_points = cluster
-
-    for name in methods:
-        setattr(sam_pt, name, timed(name, getattr(sam_pt, name)))
-    module.extract_largest_cluster_points = timed(
-        "extract_largest_cluster_points", cluster)
-    return stages, restore
+    stages = Stages()
+    for name in ("_encode_all_frames", "_predict_frames", "_track_points"):
+        stages.wrap(sam_pt, name, name)
+    stages.wrap(module, "extract_largest_cluster_points",
+                "extract_largest_cluster_points")
+    return stages
 
 
 def direct_interactive_masks(model, cfg) -> tuple:
@@ -1668,7 +1775,7 @@ def interactive_phase(fa, card: str, model=CLI_MODEL,
                              f"on {sam_pt.device}")
         cfg["model"] = sam_pt
         rng_state = sam_pt.rng.bit_generator.state
-        stages, restore = interactive_stages(sam_pt)
+        stages = interactive_stages(sam_pt)
         fa.reset_launch_counts()
         sam_pt.chain_calls = 0
         t0 = time.perf_counter()
@@ -1676,7 +1783,7 @@ def interactive_phase(fa, card: str, model=CLI_MODEL,
             results = evaluate(cfg)
             torch.cuda.synchronize()
         finally:
-            restore()
+            stages.restore()
         wall = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
         expected = interactive_schedule(sam_pt, [t, t])
@@ -1727,9 +1834,10 @@ def interactive_phase(fa, card: str, model=CLI_MODEL,
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("interactive: the run's outputs are wrong")
-        timed = sum(seconds for seconds, _ in stages.values())
+        timed = sum(stages.seconds.values())
         log("interactive: stages (serialized, host clock): " + ", ".join(
-            f"{k} {v[0]:.3f} s ({v[1]} calls)" for k, v in stages.items())
+            f"{k} {v:.3f} s ({stages.calls[k]} calls)"
+            for k, v in stages.seconds.items())
             + f", rest (the IoU and boundary scores, the harness) "
             f"{wall - timed:.3f} s")
 
@@ -2053,6 +2161,516 @@ def demo_phase(fa, card: str, model=CLI_MODEL) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The VIS phase's synthetic UVO-format tree: VIS_VIDEOS videos of
+# VIS_FRAMES PNG frames at H x W; the port's VIS config at its own widths
+# (SAM ViT-H shared by the generator and SamPt + PIPS, a 32 x 32 grid in
+# batches of 64, 100 masks), on random weights (the checkpoints are not in
+# the repository).
+VIS_FRAMES = 16
+VIS_VIDEOS = 2
+VIS_CONFIG = "vis_eval_sam_pt"
+VIS_DATASET = "chip_smoke_uvo"
+VIS_MODEL = ("sam_shared.allow_random_init=true",
+             "vos_model.point_tracker.allow_random_init=true")
+# The hypernetworks' output scale of `vis_live_weights`.
+VIS_LOGIT_SCALE = 1e4
+
+
+def amg_tokens() -> int:
+    """Tokens of the generator's decoder pass: the output tokens, the one
+    point and the pad point `Sam.decode_masks` appends when no box is
+    given (all valid); the VIS phase checks the count on the card."""
+    return DECODER_TOKENS + 1 + 1
+
+
+def vis_tokens(masks: int = 100) -> int:
+    """Tokens of a box-refinement pass of SamPt's decode chain over
+    `masks` masks with the VIS config's points (16 k-medoids positives, 1
+    negative, every other mask's positives as negatives): the output
+    tokens, the prompt, 2 box corners and the pad point; from 1024 the
+    decoder's token self-attention takes K3 at head dim 32."""
+    from sam_pt_torch.build import SAM_PT_SETTINGS
+
+    n_pos = SAM_PT_SETTINGS["positive_points_per_mask"]
+    points = n_pos + SAM_PT_SETTINGS["negative_points_per_mask"]
+    return DECODER_TOKENS + points + n_pos * (masks - 1) + 2 + 1
+
+
+def vis_frames(n_frames: int, seed: int) -> tuple:
+    """[T, H, W, 3] uint8 frames of 2-3 shapes (a rectangle, an ellipse, a
+    rectangle), each a colour of its own textured by 8 x 8 blocks of +-40,
+    moving over a flat dark background, with noise of +-6, and the shapes'
+    masks [T, n, H, W] bool (a later shape covers an earlier one)."""
+    rng = np.random.default_rng(seed)
+    n = 2 + seed % 2
+    yy, xx = np.mgrid[0:H, 0:W]
+    shapes = []
+    for k in range(n):
+        h, w = rng.integers(H // 5, H // 3), rng.integers(W // 6, W // 4)
+        y0 = rng.integers(H // 16, H - h - H // 8)
+        span = (W - w - W // 8) // n  # room to move right
+        x0 = W // 32 + rng.integers(k * span, (k + 1) * span)
+        dy, dx = rng.integers(-2, 3), rng.integers(2, 5)
+        blocks = rng.integers(-40, 41, (H // 8 + 1, W // 8 + 1, 3))
+        texture = rng.integers(60, 200, 3) + blocks.repeat(8, 0).repeat(
+            8, 1)[:H, :W]
+        shapes.append((h, w, y0, x0, dy, dx, texture, k == 1))
+    frames = np.empty((n_frames, H, W, 3), np.uint8)
+    masks = np.zeros((n_frames, n, H, W), bool)
+    for t in range(n_frames):
+        frame = np.full((H, W, 3), 24, np.int64)
+        for k, (h, w, y0, x0, dy, dx, texture, ellipse) in enumerate(shapes):
+            y, x = y0 + dy * t, x0 + dx * t
+            if ellipse:
+                inside = ((yy - y - h / 2) / (h / 2)) ** 2 + (
+                    (xx - x - w / 2) / (w / 2)) ** 2 <= 1
+            else:
+                inside = (yy >= y) & (yy < y + h) & (xx >= x) & (xx < x + w)
+            frame[inside] = texture[inside]
+            masks[t, :k, inside] = False
+            masks[t, k] = inside
+        frames[t] = np.clip(frame + rng.integers(-6, 7, (H, W, 3)), 0, 255)
+    return frames, masks
+
+
+def make_vis_tree(root: str, frames=None, videos=None) -> tuple:
+    """The VIS phase's tree under `root`, laid out as UVO v1's tiny split
+    (`uvo_v1_val_tiny` under `data_root=root`): PNG frames and a
+    class-agnostic YTVIS JSON whose ground-truth tracks are RLE, one a
+    shape. Returns (json path, frame root, the JSON)."""
+    from sam_pt_torch.vis_eval.rle import encode_mask
+    from sam_pt_torch.vos_eval.data.image_io import write_png
+
+    frames = VIS_FRAMES if frames is None else frames
+    videos = VIS_VIDEOS if videos is None else videos
+    image_root = os.path.join(root, "UVOv1.0", "uvo_videos_dense_frames")
+    json_dir = os.path.join(root, "UVOv1.0", "VideoDenseSet")
+    os.makedirs(json_dir)
+    entries, anns = [], []
+    for v in range(videos):
+        images, masks = vis_frames(frames, seed=20 + v)
+        names = [f"video{v}/{t:05d}.png" for t in range(frames)]
+        os.makedirs(os.path.join(image_root, f"video{v}"))
+        for name, image in zip(names, images):
+            write_png(os.path.join(image_root, name), image)
+        entries.append({"id": v + 1, "height": H, "width": W,
+                        "length": frames, "file_names": names})
+        for k in range(masks.shape[1]):
+            anns.append({"id": len(anns) + 1, "video_id": v + 1,
+                         "category_id": 1, "iscrowd": 0,
+                         "segmentations": [encode_mask(m) if m.any()
+                                           else None for m in masks[:, k]]})
+    gt = {"videos": entries, "annotations": anns,
+          "categories": [{"id": 1, "name": "object"}]}
+    json_file = os.path.join(json_dir, "UVO_video_val_dense_tiny.json")
+    with open(json_file, "w") as f:
+        json.dump(gt, f)
+    return json_file, image_root, gt
+
+
+def vis_live_weights(adapter) -> None:
+    """With N(0, 0.02^2) weights the generator keeps nothing, and output
+    biases or scales alone do not change that: every predicted IoU lies
+    near 0 (gate: > 0.88); every low-resolution
+    logit within +-1 (stability, the share of pixels above +1 among those
+    above -1: gate >= 0.95); the LayerNorms' N(0, 0.02^2) weights and
+    biases wash the image out of the decoder's features, so a mask is the
+    same for every point and image; and the random transposed convs give
+    each of the 4 x 4 pixels a token upscales to its own sign, so every
+    mask spans the frame and box NMS keeps one. Set, so that masks follow
+    the image and the point: the two output biases of
+    `bias_for_a_live_run` (the IoU head's last bias to 1, so IoUs lie near
+    1; PIPS's visibility bias); the mask decoder's and the encoder neck's
+    LayerNorms at their standard init (weight 1, bias 0); the decoder's
+    two transposed convs with their four taps tied and no bias (each
+    upscaled pixel a function of its own token); the prompt encoder's
+    Gaussian positional matrix at SAM's scale, N(0, 1) (x 50); the four
+    hypernetworks' last layers scaled by VIS_LOGIT_SCALE (every mask logit
+    times it, so few pixels stay within +-1)."""
+    bias_for_a_live_run(adapter.model)
+    sam = adapter.model.sam_predictor.model
+    decoder = sam.mask_decoder
+    with torch.no_grad():
+        for module in (decoder, sam.image_encoder.neck):
+            for norm in module.modules():
+                if isinstance(norm, torch.nn.LayerNorm):
+                    norm.weight.fill_(1.0)
+                    norm.bias.zero_()
+        for i in (0, 3):
+            conv = decoder.output_upscaling[i]
+            conv.weight.copy_(conv.weight[..., :1, :1].expand_as(
+                conv.weight))
+            conv.bias.zero_()
+        sam.prompt_encoder.pe_layer.positional_encoding_gaussian_matrix.mul_(
+            50.0)
+        for mlp in decoder.output_hypernetworks_mlps:
+            mlp.layers[-1].weight.mul_(VIS_LOGIT_SCALE)
+            mlp.layers[-1].bias.mul_(VIS_LOGIT_SCALE)
+
+
+def vis_schedule(adapter, tracked) -> dict:
+    """Kernel launches of the VIS path over videos of (frames, tracked
+    masks) `tracked`: per video, the generator's one-frame encode and its
+    decodes (K3 5 a batch of `points_per_batch` points), then SamPt's
+    (`launch_schedule`); a decoder pass whose tokens reach 1024 (100
+    masks' prompts: 17 points and 16 of each other mask) also sends its
+    two self-attentions through K3."""
+    sam_pt, gen = adapter.model, adapter.sam_generator
+    found = launch_schedule(sam_pt, [1] * len(tracked), [])
+    batches = -(-len(gen.point_grids[0]) // gen.points_per_batch)
+    found["cross"] = 5 * batches * len(tracked)
+    tracked = [(t, m) for t, m in tracked if m]
+    own = launch_schedule(sam_pt, [t for t, _ in tracked],
+                          [t * m for t, m in tracked])
+    points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
+    for key in ("window", "global"):
+        found[key] += own[key]
+    found["cross"] += own["cross"]
+    dc = sam_pt.sam_decode_chunk
+    for t, m in tracked:
+        prompt = points + (sam_pt.positive_points_per_mask * (m - 1) if (
+            sam_pt.add_other_objects_positive_points_as_negative_points)
+            else 0)
+        chunks = -(-t * m // min(dc, t * m))
+        first = DECODER_TOKENS + prompt + 1  # the pad point
+        passes = [first] * (2 if sam_pt.negative_points_per_mask else 1)
+        passes += [first + 2] * sam_pt.iterative_refinement_iterations
+        found["cross"] += 2 * chunks * sum(n >= 1024 for n in passes)
+    return found
+
+
+def vis_generator_check(gen, fa, frame: np.ndarray) -> None:
+    """The generator's first batch of points on `frame` with the kernels
+    and with their plain versions in their place: low-resolution logits
+    rel. L2 and IoU as `reference_phase` holds them; the decoder's token
+    count as `amg_tokens` says."""
+    hw = frame.shape[:2]
+    pts = gen.point_grids[0][:gen.points_per_batch] * np.array(
+        [hw[1], hw[0]], np.float32)
+    shapes = []
+    cross = fa.cross_attention
+
+    def recorded(q, k, v, **kwargs):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return cross(q, k, v, **kwargs)
+
+    fa.cross_attention = recorded
+    try:
+        emb = gen._encode(frame)
+        low_k, iou_k = gen._decode(emb, pts, hw)
+    finally:
+        fa.cross_attention = cross
+    with plain_route(fa):
+        low_p, iou_p = gen._decode(gen._encode(frame), pts, hw)
+    rel = rel_l2(low_k, low_p)
+    d_iou = float((iou_k - iou_p).abs().max())
+    tokens = sorted({q[1] for q, k in shapes if k[1] >= 1024})
+    b = gen.points_per_batch
+    ok = rel < 5e-2 and d_iou < 5e-2 and (
+        not shapes or tokens == [amg_tokens()])
+    log(f"vis generator: first batch ({b} points x 3 masks) kernels vs "
+        f"plain: low-res logits rel_l2 {rel:.3e}, iou max diff "
+        f"{d_iou:.3e}; K3 calls {len(shapes)} of q x k "
+        f"{sorted(set(shapes))} (tokens {tokens}, amg_tokens() "
+        f"{amg_tokens()}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("vis: the generator's kernel path disagrees")
+
+
+@contextlib.contextmanager
+def first_decode_chunk(sam_pt):
+    """Within the block, record the first decode chunk that `sam_pt` runs
+    (`_chain`): yields a list that then holds (its inputs, its outputs)."""
+    chain = sam_pt._chain
+    first = []
+
+    def recorded(*args):
+        out = chain(*args)
+        if not first:
+            first.append((args, out))
+        return out
+
+    sam_pt._chain = recorded
+    try:
+        yield first
+    finally:
+        del sam_pt._chain
+
+
+# The capacity run's video length: video 0 cut to its first frames.
+VIS_CAPACITY_FRAMES = 8
+
+
+def vis_capacity_run(adapter, fa, dataset) -> dict:
+    """The VIS path at the config's `max_num_masks` (100; UVO's videos
+    give about as many proposals): video 0 cut to VIS_CAPACITY_FRAMES
+    frames, the generator's box NMS threshold raised to 1 so that it keeps
+    every survivor of its gates and the adapter tracks the first 100. The
+    prompts then hold vis_tokens() tokens, past 1024, so the decoder's
+    token self-attention takes K3 at head dim 32 (`vis_schedule`'s
+    branch). Fails unless the launches equal the schedule, every track is
+    kept and the run's first decode chunk agrees with the plain route.
+    Returns the launches."""
+    sam_pt, gen = adapter.model, adapter.sam_generator
+    video = dataset.load_video(dataset.videos[0])
+    video["image"] = video["image"][:VIS_CAPACITY_FRAMES]
+    t = len(video["image"])
+    nms = gen.box_nms_thresh
+    gen.box_nms_thresh = 1.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    try:
+        with first_decode_chunk(sam_pt) as first:
+            out = adapter([video])
+            torch.cuda.synchronize()
+    finally:
+        gen.box_nms_thresh = nms
+    seconds = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    m = len(out["pred_masks"])
+    expected = vis_schedule(adapter, [(t, m)])
+    args, kernel_out = first[0]
+    points = args[1].shape[1]
+    ok = (launches == expected and m == adapter.max_num_masks
+          and all(mask.shape == (t, H, W) for mask in out["pred_masks"])
+          and bool(np.isfinite(out["trajectories"]).all()))
+    log(f"vis capacity: video 0's first {t} frames, box NMS threshold 1: "
+        f"{m} tracks, {points} points a prompt ({DECODER_TOKENS + points + 3}"
+        f" tokens in a refinement pass), launches {launches} expected "
+        f"{expected}, {seconds:.3f} s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("vis capacity: launches or tracks are wrong")
+    chain_check(sam_pt, fa, args, f"vis capacity SamPt (its first chunk, "
+                f"{len(args[1])} pairs)", kernel_out)
+    return launches
+
+
+def vis_kernel_cases(fa, device, pairs: int, masks: int) -> dict:
+    """K3 at the VIS evaluate run's tracked prompts (`cross_attention_vis`):
+    a decode chunk of `pairs` pairs in a box-refinement pass over `masks`
+    masks, vis_tokens(masks) tokens, the pad slot masked out of the
+    image->token direction's keys (a box is given); above 64 keys both
+    directions take the token->image kernel."""
+    valid = torch.ones((pairs, vis_tokens(masks)), dtype=torch.bool,
+                       device=device)
+    valid[:, -1] = False
+    t2i, i2t = cross_pair_cases(fa, bf16_randn(device, 2), valid)
+    return {"cross_vis": t2i, "cross_vis_masked": i2t}
+
+
+# (label, owner on the adapter, method) of the VIS stage split; the
+# generator's host work (boxes, records, NMS) is what `generate` spends
+# outside the three stages below it.
+VIS_STAGES = (("generator", "sam_generator", "generate"),
+              ("generator encode", "sam_generator", "_encode"),
+              ("generator decode", "sam_generator", "_decode"),
+              ("gate and upscale", "sam_generator", "_gate_and_upscale"),
+              ("SamPt", "model", "forward"))
+
+
+def vis_phase(fa, card: str, model=VIS_MODEL,
+              profiling: bool = False) -> dict:
+    """The port's VIS path at full width (see the module's docstring,
+    phase 18). `model` holds the overrides that give both runs their
+    model (a rehearsal on the CPU passes `device=cpu` and tiny models).
+    Returns the launches of the evaluate run ("launches") and, in it, the
+    K3 launches of the generator's decodes ("amg") and of SamPt
+    ("sam_pt"), its tracks a video ("tracked"), SamPt's decode chunk
+    ("pairs") and the launches of `vis_capacity_run` ("capacity")."""
+    import shutil
+    import tempfile
+
+    from sam_pt_torch.config import compose, instantiate
+    from sam_pt_torch.config import resolve_interpolations
+    from sam_pt_torch.vis_eval import eval as vis_eval
+    from sam_pt_torch.vis_eval.datasets import VISDataset, register_dataset
+    from sam_pt_torch.vis_eval.rle import decode_mask
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.realpath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="vis_phase_",
+                            dir=os.path.join(here, "build"))
+    try:
+        t0 = time.perf_counter()
+        json_file, image_root, gt = make_vis_tree(root)
+        register_dataset(VIS_DATASET, json_file, image_root,
+                         class_agnostic=True)
+        log(f"vis: wrote the UVO-format tree ({VIS_VIDEOS} videos x "
+            f"{VIS_FRAMES} PNG frames {H} x {W}, "
+            f"{len(gt['annotations'])} ground-truth tracks as RLE) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = resolve_interpolations(compose(vis_eval.CONFIG_DIR, VIS_CONFIG, [
+            f"dataset={VIS_DATASET}", f"output={root}/out0", *model]))
+        t0 = time.perf_counter()
+        adapter = instantiate(cfg["model"])
+        vis_live_weights(adapter)
+        torch.cuda.synchronize()
+        sam_pt, gen = adapter.model, adapter.sam_generator
+        encoder = sam_pt.sam_predictor.model.image_encoder
+        log(f"vis: instantiated cfg['model'] ({type(adapter).__name__}: SAM "
+            f"{len(encoder.blocks)} blocks {sam_pt.sam_predictor.model.dtype}"
+            f" shared by the generator and "
+            f"{type(sam_pt).__name__} + "
+            f"{type(sam_pt.point_tracker).__name__}; a "
+            f"{int(len(gen.point_grids[0]) ** 0.5)}^2 grid in batches of "
+            f"{gen.points_per_batch}, {adapter.max_num_masks} masks, tracker"
+            f" batch {sam_pt.point_tracker_mask_batch_size}) on "
+            f"{sam_pt.device} in {time.perf_counter() - t0:.1f} s")
+        if gen.predictor is not sam_pt.sam_predictor:
+            raise SystemExit("vis: the generator and SamPt hold two "
+                             "predictors")
+        if sam_pt.device.type != cfg["device"]:
+            raise SystemExit(f"vis: the model is not on {cfg['device']}")
+        dataset = VISDataset(json_file, image_root, True)
+        first = dataset.load_video(dataset.videos[0])["image"][0]
+        vis_generator_check(gen, fa, first)
+
+        cfg["model"] = adapter
+        rng_state = sam_pt.rng.bit_generator.state
+        stages = Stages()
+        stages.wrap(gen, "_decode", "generator decode")
+        stages.wrap(gen, "_gate_and_upscale", "gates",
+                    count=lambda out: 0 if out is None else len(out[0]))
+        stages.wrap(sam_pt, "forward", "SamPt")
+        fa.reset_launch_counts()
+        try:
+            with first_decode_chunk(sam_pt) as first_chunk:
+                results = vis_eval.evaluate(cfg)
+                torch.cuda.synchronize()
+        finally:
+            stages.restore()
+        launches = dict(fa.LAUNCHES)
+        with open(os.path.join(root, "out0", "results.json")) as f:
+            records = json.load(f)
+        tracked = [sum(r["video_id"] == v["id"] for r in records)
+                   for v in dataset.videos]
+        expected = vis_schedule(adapter, [(VIS_FRAMES, m) for m in tracked])
+        amg = stages.launches["generator decode"]["cross"]
+        own = stages.launches.get("SamPt", {}).get("cross", 0)
+        log(f"vis: launches {launches} expected {expected}; K3 of the "
+            f"generator's decodes {amg}, of SamPt {own}; "
+            f"{stages.counts.get('gates', 0)} of "
+            f"{3 * len(gen.point_grids[0]) * len(dataset.videos)} candidates "
+            f"passed both gates (the device's counts), {sum(tracked)} "
+            f"tracked after box NMS")
+        if launches != expected:
+            raise SystemExit("vis: launch counts differ from the schedule")
+        stats = {k: v for k, v in results.items()
+                 if k not in ("fps", "n_records")}
+        ok = (len(stats) == 12 and all(np.isfinite(v) and (
+            v == -1.0 or 0.0 <= v <= 1.0) for v in stats.values())
+            and all(2 <= m <= adapter.max_num_masks for m in tracked)
+            and all(len(r["segmentations"]) == VIS_FRAMES for r in records))
+        log(f"vis: evaluate: {results['n_records']} tracks ({tracked} a "
+            f"video), fps {results['fps']:.3f}, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stats.items())
+            + f" {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("vis: the run's outputs are wrong")
+        args, kernel_out = first_chunk[0]
+        chain_check(sam_pt, fa, args, f"vis SamPt (video 0's first chunk: "
+                    f"{len(args[1])} pairs, {args[1].shape[1]} points a "
+                    f"prompt)", kernel_out)
+        del first_chunk, args, kernel_out
+
+        sam_pt.rng.bit_generator.state = rng_state
+        timed = Stages()
+        timed.wrap(gen, "generate", "generate")
+        timed.wrap(sam_pt, "forward", "track")
+        frames, outs = 0, []
+        try:
+            for meta in dataset.videos:
+                video = dataset.load_video(meta)
+                frames += len(video["image"])
+                outs.append(adapter([video]))
+        finally:
+            timed.restore()
+        for v, (meta, out) in enumerate(zip(dataset.videos, outs)):
+            direct = vis_eval.predictions_to_records(out, meta["id"])
+            written = [r for r in records if r["video_id"] == meta["id"]]
+            same = len(direct) == len(written) and all(
+                a["segmentations"] == b["segmentations"]
+                and a["score"] == b["score"] for a, b in zip(direct, written))
+            decoded = all(
+                np.array_equal(decode_mask(seg) if seg else
+                               np.zeros((H, W), bool), m)
+                for r, masks in zip(written, out["pred_masks"])
+                for seg, m in zip(r["segmentations"], masks))
+            log(f"vis: video {v}: {len(written)} tracks, the written "
+                f"records equal a direct adapter call's with the rng reset: "
+                f"{same}; results.json decodes to the downloaded masks: "
+                f"{decoded} {'OK' if same and decoded else 'FAIL'}")
+            if not (same and decoded):
+                raise SystemExit("vis: the records differ from the direct "
+                                 "adapter call")
+        log(f"vis: generator {timed.seconds['generate'] / VIS_VIDEOS:.3f} s "
+            f"a frame ({len(gen.point_grids[0])} points, 3 masks each); "
+            f"SamPt tracking {frames / timed.seconds['track']:.3f} frames/s "
+            f"({tracked} masks over {frames} frames); evaluate fps "
+            f"{results['fps']:.3f}; on {card}")
+
+        if profiling:
+            stages = Stages()
+            for label, owner, name in VIS_STAGES:
+                stages.wrap(getattr(adapter, owner), name, label)
+            stages.wrap(vis_eval, "predictions_to_records", "RLE encoding")
+            stages.wrap(vis_eval.YTVOSEvaluator, "evaluate", "scoring")
+            cfg["output"] = f"{root}/out1"
+            t0 = time.perf_counter()
+            try:
+                vis_eval.evaluate(cfg)
+                torch.cuda.synchronize()
+            finally:
+                stages.restore()
+            total = time.perf_counter() - t0
+            split = dict(stages.seconds)
+            split["generator host"] = split.pop("generator") - sum(
+                split[k] for k in ("generator encode", "generator decode",
+                                   "gate and upscale"))
+            log(f"profile vis: serialized {total:.4f} s: " + ", ".join(
+                f"{k} {v:.4f} ({100 * v / total:.1f}%)"
+                for k, v in split.items())
+                + f", rest {total - sum(split.values()):.4f}")
+            video = dataset.load_video(dataset.videos[0])
+            device_profile("vis_video0", lambda: adapter([video]), card)
+
+        capacity = vis_capacity_run(adapter, fa, dataset)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sam_pt_torch.vis_eval.eval",
+             "dataset=uvo_v1_val_tiny", f"data_root={root}",
+             f"output={root}/out2", "max_videos=1",
+             "+vos_model.point_tracker_mask_batch_size=100",
+             f"device={cfg['device']}", *model],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        shown = [line for line in lines if line.startswith(
+            ("Model on", "Generated", "FPS:", "{'AP'"))]
+        ok = (proc.returncode == 0
+              and f"Model on {sam_pt.device}" in shown
+              and any(line.startswith("{'AP'") for line in shown)
+              and os.path.exists(os.path.join(root, "out2", "results.json")))
+        # Random weights as built keep no proposal: the run tracks nothing.
+        log(f"vis: python -m sam_pt_torch.vis_eval.eval (1 video, random "
+            f"weights as built) exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s: {'; '.join(shown)} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+            raise SystemExit("vis: the entry point failed")
+        pairs = sam_pt.sam_decode_chunk
+        del adapter, sam_pt, gen, cfg
+        torch.cuda.empty_cache()
+        log(f"vis: the phase took {time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches, "amg": amg, "sam_pt": own,
+                "tracked": tracked, "pairs": pairs, "capacity": capacity}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # JSON row -> (source, the TPU function it replaces)
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -2072,7 +2690,8 @@ VIT_B_ROWS = ("window", "global")
 
 def kernel_json(report: dict, launches: dict, route_launches: dict,
                 default_launches: dict, crop_launches: dict,
-                interactive_launches: dict, *, hq_launches: dict) -> list:
+                interactive_launches: dict, *, hq_launches: dict,
+                vis_launches: dict) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
@@ -2084,7 +2703,13 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
     (`cross_attention_hq`, token->image and, suffixed, image->token) with
     the HQ phase's K3 launches, one count for both directions (the
     wrapper counts K3 launches, not which kernel each took), as the row's
-    `launches_of` says."""
+    `launches_of` says; then K3 of the VIS phase's generator at its batch
+    of one-point prompts (`cross_attention_amg`, both directions as for
+    HQ) with the K3 launches of the generator's decodes in that phase;
+    then K3 at the VIS evaluate run's tracked prompts
+    (`cross_attention_vis`, both directions) with SamPt's K3 launches in
+    that run; then K3 at head dim 32 (`cross_attention_self`) with every
+    K3 launch of the VIS capacity run, which takes it."""
     kernels = []
     for key, (source, replaces) in KERNEL_SOURCES.items():
         r = report[key]
@@ -2103,8 +2728,8 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
         # Image->token without the mask: its error counts, its times are
         # only logged.
         if key == "cross":
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       report["cross_unmasked"]["max_abs_err"])
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], report["cross_unmasked"]["max_abs_err"])
         if key == "relpos":
             entry["launches"] = route_launches["relpos"]
         kernels.append(entry)
@@ -2128,14 +2753,25 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
                         "max_abs_err": r["max_abs_err"],
                         **{f: r[f] for f in TIMES}})
     source, replaces = KERNEL_SOURCES["cross"]
-    r, m = report["cross_hq"], report["cross_hq_masked"]
-    kernels.append({"name": "cross_attention_hq", "route": "cuda",
-                    "source": source, "replaces": replaces,
-                    "launches": hq_launches["cross"],
-                    "launches_of": "token_to_image + image_to_token",
-                    "max_abs_err": max(r["max_abs_err"], m["max_abs_err"]),
-                    **{f: r[f] for f in TIMES},
-                    **{f + "_image_to_token": m[f] for f in TIMES}})
+    both = "token_to_image + image_to_token"
+    for name, cases, count, of in (
+            ("cross_attention_hq", ("cross_hq", "cross_hq_masked"),
+             hq_launches["cross"], both),
+            ("cross_attention_amg", ("cross_amg", "cross_amg_masked"),
+             vis_launches["amg"], both),
+            ("cross_attention_vis", ("cross_vis", "cross_vis_masked"),
+             vis_launches["sam_pt"], both),
+            ("cross_attention_self", ("cross_self",),
+             vis_launches["capacity"]["cross"],
+             "every K3 launch of the VIS capacity run: token_to_image + "
+             "image_to_token + the head-dim-32 self-attention")):
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": count, "launches_of": of,
+               "max_abs_err": max(report[c]["max_abs_err"] for c in cases),
+               **{f: report[cases[0]][f] for f in TIMES}}
+        for c in cases[1:]:
+            row.update({f + "_image_to_token": report[c][f] for f in TIMES})
+        kernels.append(row)
     return kernels
 
 
@@ -2216,6 +2852,7 @@ def gemm_profile(card: str, tag: str, device: str = "cuda") -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     profiling = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs only on a GPU",
@@ -2322,10 +2959,17 @@ def main() -> int:
     hq_launches = hq_phase(fa, device_fuse_index_masks, card, profiling)
     mobile_phase(fa, device_fuse_index_masks, card, profiling)
     demo_phase(fa, card)
+    vis_launches = vis_phase(fa, card, profiling=profiling)
+    report.update(measure_cases(vis_kernel_cases(
+        fa, device, vis_launches["pairs"], max(vis_launches["tracked"])),
+        profiling))
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
+        f"to the verdict")
     log(json.dumps({"kernels": kernel_json(
         report, launches, route_launches, default_launches, crop_launches,
-        interactive_launches, hq_launches=hq_launches)}))
+        interactive_launches, hq_launches=hq_launches,
+        vis_launches=vis_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
 // K3: multi-head cross-attention of the SAM mask decoder between the prompt
 // tokens and the 64 x 64 image tokens, on pre-projected q/k/v with the heads
-// kept merged (bfloat16, head dim 16).
+// kept merged (bfloat16, head dim 16; the token -> image kernel also takes
+// head dim 32, the decoder's token self-attention, which the decoder sends
+// here from 1024 tokens, as the JAX package does).
 //
 // Replaces: sam_pt_tpu/ops/flash_attention.py:381 fused_cross_attention
 // (Pallas kernel _cross_attention_kernel :335).
 //
-// Computes, per pair b, head h and query row (head dim 16, as in SAM):
+// Computes, per pair b, head h and query row (head dim 16 or 32):
 //   lg[j] = rnd(rnd(q . k_j) / divisor)              (f32 dot, rnd = bf16)
 //   lg[j] = rnd(-1e9)  where kv_valid[b, j] == 0     (masked keys)
 //   p[j]  = rnd(exp(lg[j] - max) / sum)              (softmax in f32)
@@ -78,23 +80,29 @@ constexpr int K3_DH = 16;  // head dim
 constexpr int K3T_WARPS = 8;
 constexpr int K3T_ROWS = 64;            // query rows per block
 constexpr int K3T_KC = 128;             // keys per chunk, 64 per key half
-constexpr int K3T_LD = 24;              // bf16 per staged row: 48 bytes, so
-                                        // 8 rows hit 8 distinct bank quads
+// bf16 per staged row: the head dim and 16 bytes, so that 8 rows read by
+// ldmatrix hit 8 distinct bank quads (48 bytes at head dim 16, 80 at 32).
+__host__ __device__ constexpr int k3t_ld(int dh) { return dh + 8; }
 
-// S = Q K^T for the 16 keys from `krow0` (staged rows, K3T_LD apart): s0
-// holds keys 2t, 2t + 1 and s1 keys 8 + 2t, 9 + 2t, each of rows g (0, 1)
-// and g + 8 (2, 3).
+// S = Q K^T for the 16 keys from `krow0` (staged rows, k3t_ld(DH) apart),
+// one k-step per 16 dims: s0 holds keys 2t, 2t + 1 and s1 keys 8 + 2t,
+// 9 + 2t, each of rows g (0, 1) and g + 8 (2, 3).
+template <int DH>
 __device__ __forceinline__ void qk_tile(const __nv_bfloat16* krow0,
-                                        const uint32_t qa[4], int lane,
-                                        float s0[4], float s1[4]) {
-  // Matrices: keys 0-7 x dims 0-7, 0-7 x 8-15, 8-15 x 0-7, 8-15 x 8-15.
-  uint32_t kb[4];
-  ldmatrix_x4(kb, krow0 + ((lane & 7) + ((lane >> 4) << 3)) * K3T_LD +
-                      ((lane >> 3) & 1) * 8);
+                                        const uint32_t qa[DH / 16][4],
+                                        int lane, float s0[4], float s1[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) s0[i] = s1[i] = 0.f;
-  mma_16816(s0, qa, kb[0], kb[1]);
-  mma_16816(s1, qa, kb[2], kb[3]);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    // Matrices: keys 0-7 x dims 0-7, 0-7 x 8-15, 8-15 x 0-7, 8-15 x 8-15
+    // of the k-step's 16 dims.
+    uint32_t kb[4];
+    ldmatrix_x4(kb, krow0 + ((lane & 7) + ((lane >> 4) << 3)) * k3t_ld(DH) +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_16816(s0, qa[kk], kb[0], kb[1]);
+    mma_16816(s1, qa[kk], kb[2], kb[3]);
+  }
 }
 
 // POW2: `scale` is 1 / divisor and the divisor a power of two, so the
@@ -102,10 +110,14 @@ __device__ __forceinline__ void qk_tile(const __nv_bfloat16* krow0,
 // a bf16 value: the second rounding is exact and skipped (below 2^-126,
 // in bf16's subnormals, the two differ by less than 2^-133, which no
 // softmax in f32 can see). Otherwise `scale` is the divisor.
-// At most 85 registers a thread, so that 3 blocks share an SM and the main
-// path's 384 blocks (48 pairs x 8 heads) run in one wave on 132 SMs.
-template <bool MASKED, bool POW2>
-__global__ void __launch_bounds__(K3T_WARPS * 32, 3)
+// DH: the head dim, 16 (the cross-attentions) or 32 (the decoder's token
+// self-attention, which reaches this kernel when a prompt has 1024 tokens
+// or more: 100 masks' prompts in the VIS path).
+// At head dim 16, at most 85 registers a thread, so that 3 blocks share
+// an SM and the main path's 384 blocks (48 pairs x 8 heads) run in one
+// wave on 132 SMs; at 32, twice the q fragments and accumulators, 2.
+template <bool MASKED, bool POW2, int DH>
+__global__ void __launch_bounds__(K3T_WARPS * 32, DH == 16 ? 3 : 2)
 cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -113,11 +125,19 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ out, int nq, int nk,
                            int heads, float scale) {
   typedef __nv_bfloat16 bf16;
-  __shared__ __align__(16) bf16 ks[2][K3T_KC * K3T_LD];
-  __shared__ __align__(16) bf16 vs[2][K3T_KC * K3T_LD];
+  constexpr int LD = k3t_ld(DH);
+  constexpr int KS = DH / 16;  // k-steps of S = Q K^T
+  constexpr int NT = DH / 8;   // n8 tiles of the output
+  constexpr int PARTS = DH / 8;  // 16-byte pieces of a staged row
+  __shared__ __align__(16) bf16 ks[2][K3T_KC * LD];
+  __shared__ __align__(16) bf16 vs[2][K3T_KC * LD];
   __shared__ unsigned char valid[2][K3T_KC];
   __shared__ float stat_m[2][K3T_ROWS], stat_l[2][K3T_ROWS];
-  __shared__ float osum[K3T_ROWS][K3_DH + 1];
+  // The second key half's output tiles, summed at the end, in ks (free
+  // by then).
+  static_assert(K3T_ROWS * (DH + 1) * sizeof(float) <= sizeof(ks),
+                "osum does not fit in ks");
+  float(*osum)[DH + 1] = reinterpret_cast<float(*)[DH + 1]>(&ks[0][0]);
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -126,36 +146,44 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
   const int rt = warp & 3;     // row tile
   const int half = warp >> 2;  // key half of every chunk
   const int g = lane >> 2, t = lane & 3;
-  const int ch = heads * K3_DH;
+  const int ch = heads * DH;
   const int row_lo = blockIdx.x * K3T_ROWS + rt * 16 + g;  // and row_lo + 8
   // In log2 units: the masked logit, and 1 / divisor (a power of two
   // times log2 e: the product rounds as the two multiplies would).
   const float masked_log2 = round_bf16(-1e9f) * kLog2e;
   const float scale_log2 = scale * kLog2e;
 
-  // q as the A fragment: rows g, g + 8; columns 2t, 2t + 1 (+ 8).
-  uint32_t qa[4];
+  // q as the A fragments, one a k-step: rows g, g + 8; columns 2t, 2t + 1
+  // (+ 8) of the step's 16 dims.
+  uint32_t qa[KS][4];
   {
-    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
-        q + ((long)b * nq + row_lo) * ch + h * K3_DH);
-    const uint32_t* q1 = q0 + 4 * ch;  // eight rows on, in 32-bit words
     const bool ok0 = row_lo < nq, ok1 = row_lo + 8 < nq;
-    qa[0] = ok0 ? q0[t] : 0u;
-    qa[1] = ok1 ? q1[t] : 0u;
-    qa[2] = ok0 ? q0[t + 4] : 0u;
-    qa[3] = ok1 ? q1[t + 4] : 0u;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
+          q + ((long)b * nq + row_lo) * ch + h * DH + kk * 16);
+      const uint32_t* q1 = q0 + 4 * ch;  // eight rows on, in 32-bit words
+      qa[kk][0] = ok0 ? q0[t] : 0u;
+      qa[kk][1] = ok1 ? q1[t] : 0u;
+      qa[kk][2] = ok0 ? q0[t + 4] : 0u;
+      qa[kk][3] = ok1 ? q1[t + 4] : 0u;
+    }
   }
 
   const int nchunks = (nk + K3T_KC - 1) / K3T_KC;
-  // Chunk `c` into buffer `buf`: a thread per (key, 16-byte half row),
-  // zeros past nk.
+  // Chunk `c` into buffer `buf`: a thread per (key, 16-byte piece) of
+  // every 256, zeros past nk.
   auto load_chunk = [&](int c, int buf, bool with_v) {
-    const int r = threadIdx.x >> 1, part = (threadIdx.x & 1) * 8;
-    const int key = c * K3T_KC + r;
-    const bool ok = key < nk;
-    const long src = ((long)b * nk + (ok ? key : 0)) * ch + h * K3_DH + part;
-    cp_async16(ks[buf] + r * K3T_LD + part, k + src, ok);
-    if (with_v) cp_async16(vs[buf] + r * K3T_LD + part, v + src, ok);
+#pragma unroll
+    for (int i = 0; i < PARTS / 2; ++i) {
+      const int item = threadIdx.x + i * K3T_WARPS * 32;
+      const int r = item / PARTS, part = (item % PARTS) * 8;
+      const int key = c * K3T_KC + r;
+      const bool ok = key < nk;
+      const long src = ((long)b * nk + (ok ? key : 0)) * ch + h * DH + part;
+      cp_async16(ks[buf] + r * LD + part, k + src, ok);
+      if (with_v) cp_async16(vs[buf] + r * LD + part, v + src, ok);
+    }
     cp_async_commit();
     if (MASKED && threadIdx.x < K3T_KC) {
       const int j = c * K3T_KC + threadIdx.x;
@@ -193,7 +221,7 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
       const int kl = half * 64 + tile * 16;
       const int j = kl + 2 * t;
       float s0[4], s1[4];
-      qk_tile(ks[buf] + kl * K3T_LD, qa, lane, s0, s1);
+      qk_tile<DH>(ks[buf] + kl * LD, qa, lane, s0, s1);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         lg[r][4 * tile + 0] = logit2(s0[2 * r], c, buf, j);
@@ -246,8 +274,11 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // Pass 2: p = rnd(exp(lg - max) / sum) as the A fragment of P V.
-  float o0[4] = {0.f, 0.f, 0.f, 0.f};  // dims 2t, 2t + 1 (rows g, g + 8)
-  float o1[4] = {0.f, 0.f, 0.f, 0.f};  // dims 8 + 2t, 9 + 2t
+  float o[NT][4];  // n8 tile n: dims 8n + 2t, 8n + 2t + 1 (rows g, g + 8)
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   for (int c = 0; c < nchunks; ++c) {
     const int buf = c & 1;
     next_chunk(c, true);
@@ -256,7 +287,7 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
       const int kl = half * 64 + tile * 16;
       const int j = kl + 2 * t;
       float s0[4], s1[4];
-      qk_tile(ks[buf] + kl * K3T_LD, qa, lane, s0, s1);
+      qk_tile<DH>(ks[buf] + kl * LD, qa, lane, s0, s1);
       auto p = [&](float s, int r, int jj) {
         return fast_exp2(logit2(s, c, buf, jj) - m[r]) * inv_l[r];
       };
@@ -265,14 +296,18 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
       pa[1] = pack_bf16(p(s0[2], 1, j), p(s0[3], 1, j + 1));
       pa[2] = pack_bf16(p(s1[0], 0, j + 8), p(s1[1], 0, j + 9));
       pa[3] = pack_bf16(p(s1[2], 1, j + 8), p(s1[3], 1, j + 9));
-      // Matrices: keys 0-7 x dims 0-7, 8-15 x 0-7, 0-7 x 8-15, 8-15 x 8-15.
-      uint32_t vb[4];
-      ldmatrix_x4_trans(vb, vs[buf] +
-                                (kl + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                                    K3T_LD +
-                                ((lane >> 4) << 3));
-      mma_16816(o0, pa, vb[0], vb[1]);
-      mma_16816(o1, pa, vb[2], vb[3]);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        // Matrices: keys 0-7 x dims 0-7, 8-15 x 0-7, 0-7 x 8-15, 8-15 x
+        // 8-15 of the step's 16 dims.
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vs[buf] +
+                                  (kl + (lane & 7) +
+                                   (((lane >> 3) & 1) << 3)) * LD +
+                                  kk * 16 + ((lane >> 4) << 3));
+        mma_16816(o[2 * kk], pa, vb[0], vb[1]);
+        mma_16816(o[2 * kk + 1], pa, vb[2], vb[3]);
+      }
     }
     __syncthreads();
   }
@@ -281,12 +316,12 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = rt * 16 + g;
   if (half == 1) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      osum[r0 + 8 * r][2 * t] = o0[2 * r];
-      osum[r0 + 8 * r][2 * t + 1] = o0[2 * r + 1];
-      osum[r0 + 8 * r][8 + 2 * t] = o1[2 * r];
-      osum[r0 + 8 * r][9 + 2 * t] = o1[2 * r + 1];
-    }
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        osum[r0 + 8 * r][8 * n + 2 * t] = o[n][2 * r];
+        osum[r0 + 8 * r][8 * n + 2 * t + 1] = o[n][2 * r + 1];
+      }
   }
   __syncthreads();
   if (half == 0) {
@@ -295,11 +330,12 @@ cross_attention_t2i_kernel(const __nv_bfloat16* __restrict__ q,
       const int row = row_lo + 8 * r;
       if (row >= nq) continue;
       const float* os = osum[r0 + 8 * r];
-      uint32_t* o = reinterpret_cast<uint32_t*>(
-          out + ((long)b * nq + row) * ch + h * K3_DH);
-      o[t] = pack_bf16(o0[2 * r] + os[2 * t], o0[2 * r + 1] + os[2 * t + 1]);
-      o[t + 4] = pack_bf16(o1[2 * r] + os[8 + 2 * t],
-                           o1[2 * r + 1] + os[9 + 2 * t]);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(
+          out + ((long)b * nq + row) * ch + h * DH);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        dst[4 * n + t] = pack_bf16(o[n][2 * r] + os[8 * n + 2 * t],
+                                   o[n][2 * r + 1] + os[8 * n + 2 * t + 1]);
     }
   }
 }
@@ -616,25 +652,38 @@ int launch_i2t(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return (int)cudaGetLastError();
 }
 
-template <bool MASKED, bool POW2>
+template <int DH>
 void launch_t2i(const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, const unsigned char* kv_valid,
                 __nv_bfloat16* out, int b, int nq, int nk, int heads,
-                float scale, cudaStream_t s) {
+                bool pow2, float scale, cudaStream_t s) {
   const dim3 grid((nq + K3T_ROWS - 1) / K3T_ROWS, heads, b);
-  cross_attention_t2i_kernel<MASKED, POW2><<<grid, K3T_WARPS * 32, 0, s>>>(
-      q, k, v, kv_valid, out, nq, nk, heads, scale);
+  const int threads = K3T_WARPS * 32;
+  if (kv_valid && pow2)
+    cross_attention_t2i_kernel<true, true, DH><<<grid, threads, 0, s>>>(
+        q, k, v, kv_valid, out, nq, nk, heads, scale);
+  else if (kv_valid)
+    cross_attention_t2i_kernel<true, false, DH><<<grid, threads, 0, s>>>(
+        q, k, v, kv_valid, out, nq, nk, heads, scale);
+  else if (pow2)
+    cross_attention_t2i_kernel<false, true, DH><<<grid, threads, 0, s>>>(
+        q, k, v, kv_valid, out, nq, nk, heads, scale);
+  else
+    cross_attention_t2i_kernel<false, false, DH><<<grid, threads, 0, s>>>(
+        q, k, v, kv_valid, out, nq, nk, heads, scale);
 }
 
 }  // namespace sampt
 
-// q [b, nq, heads*16], k and v [b, nk, heads*16] (16-byte aligned),
-// kv_valid [b, nk] uint8 or null, out [b, nq, heads*16], all contiguous
-// bfloat16. Returns a cudaError_t.
+// q [b, nq, heads*dh], k and v [b, nk, heads*dh] (16-byte aligned),
+// kv_valid [b, nk] uint8 or null, out [b, nq, heads*dh], all contiguous
+// bfloat16; the head dim dh is 16, or 32 (token -> image only). Returns a
+// cudaError_t.
 extern "C" int sam_cross_attention(const void* q, const void* k,
                                    const void* v, const void* kv_valid,
                                    void* out, int b, int nq, int nk,
-                                   int heads, float divisor, void* stream) {
+                                   int heads, int head_dim, float divisor,
+                                   void* stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
@@ -646,19 +695,14 @@ extern "C" int sam_cross_attention(const void* q, const void* k,
   int exponent;
   const bool pow2 = frexpf(divisor, &exponent) == 0.5f;
   const float scale = pow2 ? 1.f / divisor : divisor;
-  if (nk > nq || nk > sampt::K3I_KEYS) {  // a block per 64 query rows
-    if (mp && pow2)
-      sampt::launch_t2i<true, true>(qp, kp, vp, mp, op, b, nq, nk, heads,
-                                    scale, s);
-    else if (mp)
-      sampt::launch_t2i<true, false>(qp, kp, vp, mp, op, b, nq, nk, heads,
-                                     scale, s);
-    else if (pow2)
-      sampt::launch_t2i<false, true>(qp, kp, vp, mp, op, b, nq, nk, heads,
-                                     scale, s);
-    else
-      sampt::launch_t2i<false, false>(qp, kp, vp, mp, op, b, nq, nk, heads,
-                                      scale, s);
+  if (head_dim == 32) {  // the token self-attention: a block per 64 rows
+    sampt::launch_t2i<32>(qp, kp, vp, mp, op, b, nq, nk, heads, pow2, scale,
+                          s);
+  } else if (head_dim != sampt::K3_DH) {
+    return (int)cudaErrorInvalidValue;
+  } else if (nk > nq || nk > sampt::K3I_KEYS) {  // a block per 64 rows
+    sampt::launch_t2i<16>(qp, kp, vp, mp, op, b, nq, nk, heads, pow2, scale,
+                          s);
   } else {  // image -> token: the pair's keys staged once a block
     if (!sampt::aligned16(out)) return (int)cudaErrorInvalidValue;
     return sampt::launch_i2t(qp, kp, vp, mp, op, b, nq, nk, heads, pow2,

@@ -35,7 +35,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sam_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sam_global_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "sam_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sam_cross_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _P],
     "sam_relpos_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _P],
     "sam_window_blocks_per_sm": [_I, _I, _I],

@@ -252,14 +252,16 @@ def cross_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, heads: int, divisor: float,
                          kv_valid: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """K3 kernel launch (sam_pt_torch/csrc/cross_attention.cu)."""
+    """K3 kernel launch (sam_pt_torch/csrc/cross_attention.cu): head dim
+    16 (the decoder's cross-attentions) or 32 (its token self-attention,
+    which reaches K3 from 1024 tokens)."""
     from ._cuda import check, library
 
     tensors = (q, k, v) if kv_valid is None else (q, k, v, kv_valid)
     _check_cuda("cross_attention", tensors)
     b, nq, ch = q.shape
     nk = k.shape[1]
-    if (ch != heads * 16 or q.dtype != torch.bfloat16
+    if (ch not in (heads * 16, heads * 32) or q.dtype != torch.bfloat16
             or k.shape != (b, nk, ch) or v.shape != k.shape
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(
@@ -273,7 +275,7 @@ def cross_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     status = library().sam_cross_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        b, nq, nk, heads, _rounded(divisor, q.dtype), _stream())
+        b, nq, nk, heads, ch // heads, _rounded(divisor, q.dtype), _stream())
     check(status, "sam_cross_attention")
     LAUNCHES["cross"] += 1
     return out

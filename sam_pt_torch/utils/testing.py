@@ -5,10 +5,14 @@ the tiny SAM (ViT of width 32, depth 2, 64-pixel input) and PIPS at width
 generator seeded with `seed`. `configs/model/sam_pt_tiny_test.yaml` names
 it, so that `model=sam_pt_tiny_test` runs the CLI in seconds on the CPU
 (with `+model.interactive=true`, as a `SamPtInteractive`).
+`build_tiny_predictor` is the tiny SAM alone (counterpart of the JAX
+package's `build_tiny_predictor`), named by `configs/model/sam/
+sam_tiny_test.yaml` for the VIS CLI, where the generator and the SamPt
+share it.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -24,12 +28,32 @@ TINY_VIT = dict(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
                 window_size=2)
 
 
+def _tiny_predictor(device: torch.device,
+                    generator: torch.Generator) -> SamPredictor:
+    sam = randomize_(Sam(TINY_VIT, image_size=64).to(device), generator)
+    return SamPredictor(sam.eval().requires_grad_(False))
+
+
+def build_tiny_predictor(seed: int = 0,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> SamPredictor:
+    """The tiny SAM's predictor: the weights `build_tiny_sam_pt(seed)`
+    gives its SAM."""
+    device = torch.device(device)
+    return _tiny_predictor(
+        device, torch.Generator(device=device).manual_seed(seed))
+
+
 def build_tiny_sam_pt(seed: int = 0,
                       device: Union[str, torch.device] = "cuda",
-                      interactive: bool = False, **settings) -> SamPt:
+                      interactive: bool = False,
+                      sam_predictor: Optional[SamPredictor] = None,
+                      **settings) -> SamPt:
+    """The tiny SamPt; with `sam_predictor`, that predictor in place of
+    its own tiny SAM (the tracker's weights stay the same)."""
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    sam = randomize_(Sam(TINY_VIT, image_size=64).to(device), generator)
+    own = _tiny_predictor(device, generator)
     tracker = PipsPointTracker(stride=4, s=4, iters=2, allow_random_init=True,
                                seed=seed, device=device)
     tracker.model = randomize_(
@@ -48,6 +72,7 @@ def build_tiny_sam_pt(seed: int = 0,
     )
     defaults.update(settings)
     cls = SamPtInteractive if interactive else SamPt
-    return cls(point_tracker=tracker,
-               sam_predictor=SamPredictor(sam.eval().requires_grad_(False)),
+    if sam_predictor is None:
+        sam_predictor = own
+    return cls(point_tracker=tracker, sam_predictor=sam_predictor,
                **defaults)

@@ -85,6 +85,33 @@ ROWS = {
         _bytes((32, 4096, 128), (32, 42, 128), (32, 42, 128),
                (32, 4096, 128), extra=32 * 42),
         2.75, 67.8, 0.02024, "bytes"),
+    # the VIS phase's generator: a batch of 64 one-point prompts, 7 tokens
+    # (5 output tokens, the point, the pad point) against 4096, every
+    # token valid in the image->token direction's key mask
+    "K3 AMG token->image": (
+        (64 * 8, 7, 4096, 16),
+        _bytes((64, 7, 128), (64, 4096, 128), (64, 4096, 128),
+               (64, 7, 128)),
+        0.94, 134.4, 0.04013, "bytes"),
+    "K3 AMG image->token": (
+        (64 * 8, 4096, 7, 16),
+        _bytes((64, 4096, 128), (64, 7, 128), (64, 7, 128),
+               (64, 4096, 128), extra=64 * 7),
+        0.94, 134.4, 0.04013, "bytes"),
+    # the VIS phase's tracking with 28 proposals: a decode chunk of 32
+    # pairs in a refinement pass, 457 tokens (5 output tokens, 17 points,
+    # 16 positives of each of 27 other masks, 2 box corners, the pad), the
+    # pad masked in the image->token direction (456 valid keys)
+    "K3 VIS token->image": (
+        (32 * 8, 457, 4096, 16),
+        _bytes((32, 457, 128), (32, 4096, 128), (32, 4096, 128),
+               (32, 457, 128)),
+        30.67, 74.6, 0.03101, "operations"),
+    "K3 VIS image->token": (
+        (32 * 8, 4096, 456, 16),
+        _bytes((32, 4096, 128), (32, 457, 128), (32, 457, 128),
+               (32, 4096, 128), extra=32 * 457),
+        30.60, 74.6, 0.03094, "operations"),
 }
 
 
@@ -167,15 +194,22 @@ def test_library_yardstick_computes_the_kernels_function(name):
 # kernel_phase's report: case -> the numbers of `chip_smoke.TIMES`.
 CASES = ("window", "global", "cross", "cross_masked", "cross_unmasked",
          "relpos", "relpos_window", "window_vit_b", "global_vit_b",
-         "global_crop", "cross_interactive", "cross_hq", "cross_hq_masked")
+         "global_crop", "cross_interactive", "cross_hq", "cross_hq_masked",
+         "cross_amg", "cross_amg_masked", "cross_self", "cross_vis",
+         "cross_vis_masked")
 CROP_LAUNCHES = {"window": 168, "global": 24, "cross": 70, "relpos": 0}
 INTERACTIVE_LAUNCHES = {"window": 48, "global": 24, "cross": 15400,
                         "relpos": 0}
 HQ_LAUNCHES = {"window": 168, "global": 24, "cross": 140, "relpos": 0}
+VIS_LAUNCHES = {"launches": {"window": 280, "global": 40, "cross": 1420,
+                            "relpos": 0},
+                "amg": 160, "sam_pt": 1260, "tracked": [28, 7], "pairs": 32,
+                "capacity": {"window": 84, "global": 12, "cross": 3720,
+                             "relpos": 0}}
 SECOND_CASE = {"cross": ("cross_masked", "_image_to_token"),
                "relpos": ("relpos_window", "_window")}
-# Cases whose error counts in a row without their times.
-CHECKED_CASE = {"cross": "cross_unmasked"}
+# Cases whose errors count in a row without their times.
+CHECKED_CASES = {"cross": ("cross_unmasked",)}
 
 
 def _report():
@@ -194,7 +228,8 @@ def test_kernel_json_rows_carry_both_timers(key):
     launches = {"window": 420, "global": 60, "cross": 280, "relpos": 0}
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, launches, {"relpos": 1}, {"window": 48, "global": 24},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
+        vis_launches=VIS_LAUNCHES)}
     row = rows[f"{key}_attention"]
     assert {"name", "route", "source", "replaces", "launches",
             "max_abs_err"} <= set(row)
@@ -203,8 +238,7 @@ def test_kernel_json_rows_carry_both_timers(key):
     for case, suffix in cases:
         for f in chip_smoke.TIMES:
             assert row[f + suffix] == report[case][f]
-    checked = [c for c, _ in cases] + (
-        [CHECKED_CASE[key]] if key in CHECKED_CASE else [])
+    checked = [c for c, _ in cases] + list(CHECKED_CASES.get(key, ()))
     assert row["max_abs_err"] == max(report[c]["max_abs_err"]
                                      for c in checked)
     assert row["launches"] == (1 if key == "relpos" else launches[key])
@@ -218,7 +252,8 @@ def test_kernel_json_vit_b_rows(key):
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
+        vis_launches=VIS_LAUNCHES)}
     row = rows[f"{key}_attention_vit_b"]
     assert row["launches"] == {"window": 48, "global": 24}[key]
     assert (row["source"], row["replaces"]) == chip_smoke.KERNEL_SOURCES[key]
@@ -239,7 +274,8 @@ def test_kernel_json_rows_of_this_slice(name, case, key, launches):
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
+        vis_launches=VIS_LAUNCHES)}
     row = rows[name]
     assert row["launches"] == launches
     assert (row["route"], row["source"], row["replaces"]) == (
@@ -258,7 +294,8 @@ def test_kernel_json_hq_row():
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
-        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES)}
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
+        vis_launches=VIS_LAUNCHES)}
     row = rows["cross_attention_hq"]
     assert row["launches"] == 140
     assert row["launches_of"] == "token_to_image + image_to_token"
@@ -269,6 +306,170 @@ def test_kernel_json_hq_row():
     for f in chip_smoke.TIMES:
         assert row[f] == report["cross_hq"][f]
         assert row[f + "_image_to_token"] == report["cross_hq_masked"][f]
+
+
+def test_kernel_json_amg_row():
+    """K3 at the generator's batch of one-point prompts: token->image and,
+    suffixed, image->token, both errors counted, the K3 launches of the
+    generator's decodes in the VIS phase, every key of the contract."""
+    report = _report()
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
+        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
+        vis_launches=VIS_LAUNCHES)}
+    row = rows["cross_attention_amg"]
+    assert row["launches"] == 160
+    assert row["launches_of"] == "token_to_image + image_to_token"
+    assert (row["route"], row["source"], row["replaces"]) == (
+        "cuda", *chip_smoke.KERNEL_SOURCES["cross"])
+    assert row["max_abs_err"] == max(report["cross_amg"]["max_abs_err"],
+                                     report["cross_amg_masked"]["max_abs_err"])
+    for f in chip_smoke.TIMES:
+        assert row[f] == report["cross_amg"][f]
+        assert row[f + "_image_to_token"] == report["cross_amg_masked"][f]
+    assert len(rows) == 12
+
+
+@pytest.mark.parametrize("name,cases,launches", [
+    ("cross_attention_vis", ("cross_vis", "cross_vis_masked"), 1260),
+    ("cross_attention_self", ("cross_self",), 3720)])
+def test_kernel_json_vis_rows(name, cases, launches):
+    """K3 at the VIS evaluate run's tracked prompts (token->image and,
+    suffixed, image->token) with SamPt's K3 launches in that run, and K3
+    at head dim 32 with every K3 launch of the capacity run, each row its
+    own cases' errors and times and every key of the contract."""
+    report = _report()
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
+        {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
+        CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
+        vis_launches=VIS_LAUNCHES)}
+    row = rows[name]
+    assert row["launches"] == launches and row["launches_of"]
+    assert (row["route"], row["source"], row["replaces"]) == (
+        "cuda", *chip_smoke.KERNEL_SOURCES["cross"])
+    assert row["max_abs_err"] == max(report[c]["max_abs_err"] for c in cases)
+    for f in chip_smoke.TIMES:
+        assert row[f] == report[cases[0]][f]
+        if len(cases) > 1:
+            assert row[f + "_image_to_token"] == report[cases[1]][f]
+    assert ("bound_ms_image_to_token" in row) == (len(cases) > 1)
+
+
+@pytest.mark.parametrize("hq", [False, True])
+def test_amg_tokens_read_from_the_code(hq, monkeypatch):
+    """The decoder's tokens in a generator decode (one point, no box), as
+    `Sam.decode_masks` builds them: `amg_tokens()` (7), and one more for
+    HQ-SAM's token; the image->token key mask is all valid."""
+    from sam_pt_torch.models.sam.mask_decoder import TwoWayTransformer
+    from sam_pt_torch.models.sam.predictor import SamPredictor
+    from sam_pt_torch.models.sam.sam_model import Sam
+    from sam_pt_torch.models.sam_pt import emb_map
+    from sam_pt_torch.utils.checkpoint import randomize_
+    from sam_pt_torch.utils.testing import TINY_VIT
+
+    seen = []
+    forward = TwoWayTransformer.forward
+
+    def recorded(self, image_embedding, image_pe, point_embedding,
+                 token_valid=None):
+        seen.append((point_embedding.shape[1], token_valid))
+        return forward(self, image_embedding, image_pe, point_embedding,
+                       token_valid)
+
+    monkeypatch.setattr(TwoWayTransformer, "forward", recorded)
+    sam = randomize_(Sam(TINY_VIT, image_size=64, use_hq=hq),
+                     torch.Generator().manual_seed(0))
+    predictor = SamPredictor(sam.eval())
+    emb = predictor.encode_frames(torch.zeros((1, 48, 64, 3)), (48, 64))
+    emb = emb_map(lambda e: e.expand(3, *e.shape[1:]), emb)
+    predictor.predict(emb, torch.ones((3, 1, 2)), torch.ones((3, 1)),
+                      (48, 64), multimask_output=True)
+    assert [n for n, _ in seen] == [chip_smoke.amg_tokens() + hq]
+    assert bool(seen[0][1].all())
+
+
+def test_vis_self_attention_tokens():
+    """100 masks' prompts in a refinement pass: 5 output tokens, 17 points,
+    16 positives of each of the 99 other masks, 2 box corners, the pad
+    point: 1609 tokens, past the 1024 from which the decoder's token
+    self-attention takes K3 (at head dim 32); 63 masks stay below, and
+    28 (the VIS run's video 0) give 457. The VIS kernel cases lay the
+    keys out so: every point valid, the pad slot masked out."""
+    assert chip_smoke.vis_tokens() == 1609
+    assert chip_smoke.vis_tokens(63) < 1024 <= chip_smoke.vis_tokens(64)
+    assert chip_smoke.vis_tokens(28) == 457
+    cases = chip_smoke.vis_kernel_cases(fa, "cpu", 2, 28)
+    for name, (nq, nk, valid) in {"cross_vis": (457, 4096, 4096),
+                                  "cross_vis_masked": (4096, 457, 456)
+                                  }.items():
+        kernel, plain, library, inputs, shape = cases[name]()
+        assert inputs[0].shape == (2, nq, 128)
+        assert inputs[1].shape == (2, nk, 128)
+        assert shape == (16, nq, valid, 16)
+        torch.testing.assert_close(_merge_heads(library()).float(),
+                                   plain().float(), atol=2e-2, rtol=2e-2)
+
+
+def test_vis_schedule():
+    """The generator's one-frame encode and 16 decodes of 64 points a
+    video, then SamPt's encode chunks and decode chain; with 70 masks the
+    prompt (17 points and 16 of each other mask) passes 1024 tokens, and
+    each pass's two self-attentions take K3 too."""
+    from types import SimpleNamespace
+
+    from sam_pt_torch.models.sam.auto_mask_generator import build_point_grid
+    from sam_pt_torch.models.sam.image_encoder import VIT_VARIANTS
+
+    cfg = VIT_VARIANTS["vit_h"]
+    encoder = SimpleNamespace(blocks=[None] * cfg["depth"],
+                              global_attn_indexes=cfg["global_attn_indexes"])
+    sam_pt = SimpleNamespace(
+        sam_encode_chunk=4, sam_decode_chunk=32,
+        iterative_refinement_iterations=12, positive_points_per_mask=16,
+        negative_points_per_mask=1,
+        add_other_objects_positive_points_as_negative_points=True,
+        sam_predictor=SimpleNamespace(model=SimpleNamespace(
+            image_encoder=encoder)))
+    adapter = SimpleNamespace(model=sam_pt, sam_generator=SimpleNamespace(
+        point_grids=[build_point_grid(32)], points_per_batch=64))
+    assert chip_smoke.vis_schedule(adapter, [(16, 3), (16, 70)]) == {
+        "window": 28 * (2 + 8), "global": 4 * (2 + 8),
+        "cross": 5 * 16 * 2 + 5 * 14 * (2 + 35) + 2 * 14 * 35,
+        "relpos": 0}
+    # a video with no proposal runs the generator only
+    assert chip_smoke.vis_schedule(adapter, [(16, 0)]) == {
+        "window": 28, "global": 4, "cross": 80, "relpos": 0}
+
+
+def test_vis_tree(tmp_path):
+    """The VIS phase's tree at full size: UVO v1's tiny-split layout, 2-3
+    moving textured shapes a video, ground-truth tracks as RLE that decode
+    to the shapes."""
+    from sam_pt_torch.vis_eval.datasets import VISDataset, resolve_dataset
+    from sam_pt_torch.vis_eval.rle import decode_mask
+
+    json_file, image_root, gt = chip_smoke.make_vis_tree(str(tmp_path),
+                                                         frames=3)
+    assert resolve_dataset("uvo_v1_val_tiny", str(tmp_path))[:2] == (
+        json_file, image_root)
+    dataset = VISDataset(json_file, image_root, True)
+    assert len(dataset) == chip_smoke.VIS_VIDEOS
+    counts = [sum(a["video_id"] == v["id"] for a in gt["annotations"])
+              for v in gt["videos"]]
+    assert counts == [2, 3]
+    video = dataset.load_video(dataset.videos[0])
+    assert video["image"].shape == (3, chip_smoke.H, chip_smoke.W, 3)
+    frames, masks = chip_smoke.vis_frames(3, seed=20)
+    np.testing.assert_array_equal(video["image"], frames)
+    for k, ann in enumerate(a for a in gt["annotations"]
+                            if a["video_id"] == 1):
+        for t, seg in enumerate(ann["segmentations"]):
+            np.testing.assert_array_equal(decode_mask(seg), masks[t, k])
+        assert masks[0, k].sum() > 1000
+        assert not np.array_equal(masks[0, k], masks[-1, k])  # they move
+    assert not (masks[:, 0] & masks[:, 1]).any()
 
 
 def test_hq_shapes_stay_on_the_image_to_token_kernel():
@@ -400,7 +601,7 @@ def _rehearsal(monkeypatch, frames=None):
     monkeypatch.setattr(chip_smoke, "H", 48)
     monkeypatch.setattr(chip_smoke, "W", 80)
     for name in ("launch_schedule", "interactive_schedule",
-                 "one_point_schedule"):
+                 "one_point_schedule", "vis_schedule"):
         monkeypatch.setattr(chip_smoke, name, lambda *a: dict(zeros))
     monkeypatch.setattr(chip_smoke, "profiled_ms",
                         lambda fn, calls=20: (fn(), 1.0)[1])
@@ -511,5 +712,41 @@ def test_demo_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
                  "4 frames written", "equal the direct forward's: True",
                  "python -m sam_pt_torch.demo exit 0",
                  "Inference: 4 frames"):
+        assert line in out
+    assert "FAIL" not in out
+
+
+def test_vis_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 18 on the CPU with the tiny SAM shared by the generator and
+    the tiny SamPt, 3 frames at 48 x 80, the config's own gates: the tree,
+    the live weights, `evaluate`, SamPt's first decode chunk against the
+    plain route, the records against a direct adapter call pixel for
+    pixel, the stage split, the capacity run (100 masks) and the
+    `python -m` entry point as a subprocess."""
+    _rehearsal(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "VIS_FRAMES", 3)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda *a: None)
+    launches = chip_smoke.vis_phase(fa, "the CPU", model=(
+        "device=cpu", "model/sam@sam_shared=sam_tiny_test",
+        "model@vos_model=sam_pt_tiny_test"), profiling=True)
+    out = capsys.readouterr().out
+    zeros = {k: 0 for k in fa.LAUNCHES}
+    assert launches == {"launches": zeros, "amg": 0, "sam_pt": 0,
+                        "capacity": zeros, "pairs": 16,
+                        "tracked": launches["tracked"]}
+    assert len(launches["tracked"]) == 2
+    for line in ("vis: wrote the UVO-format tree (2 videos x 3 PNG frames "
+                 "48 x 80, 5 ground-truth tracks", "shared by the generator",
+                 "a 32^2 grid in batches of 64, 100 masks, tracker batch 100",
+                 "tracks, the written records equal a direct adapter "
+                 "call's with the rng reset: True",
+                 "decodes to the downloaded masks: True", "profile vis:",
+                 "generator host", "scoring", "candidates passed both gates",
+                 "vis SamPt (video 0's first chunk", "vis capacity: video "
+                 "0's first 3 frames, box NMS threshold 1: 100 tracks",
+                 "vis capacity SamPt (its first chunk, 16 pairs)",
+                 "python -m sam_pt_torch.vis_eval.eval"
+                 " (1 video, random weights as built) exit 0",
+                 "vis: the phase took"):
         assert line in out
     assert "FAIL" not in out

@@ -1,5 +1,6 @@
 """The port imports torch and never jax (nor the JAX package, nor
-scikit-learn, nor transformers); its kernel modules build nothing at
+scikit-learn, nor transformers, nor, at import, PyYAML or Pillow); its
+kernel modules build nothing at
 import; `chip_smoke.py` refuses to run without a CUDA device. The port's
 CLI and its demo run where jax, the JAX package, PyYAML, Pillow, pandas,
 cv2, scikit-learn and matplotlib cannot be imported (as on a machine that
@@ -64,6 +65,13 @@ SLICE_MODULES = [
     "sam_pt_torch.vos_eval.data.video_reader",
     "sam_pt_torch.vos_eval.data.test_datasets",
     "sam_pt_torch.demo",
+    "sam_pt_torch.models.sam.auto_mask_generator",
+    "sam_pt_torch.parallel.eval_sharding",
+    "sam_pt_torch.vis_eval.rle",
+    "sam_pt_torch.vis_eval.ytvos_eval",
+    "sam_pt_torch.vis_eval.datasets",
+    "sam_pt_torch.vis_eval.adapter",
+    "sam_pt_torch.vis_eval.eval",
 ]
 # Importable here but not on every machine the port runs on.
 BLOCKED = ["jax", "flax", "sam_pt_tpu", "yaml", "PIL", "pandas", "cv2",
@@ -86,6 +94,8 @@ def test_port_never_imports_jax():
             "assert 'sklearn' not in sys.modules, 'scikit-learn imported'\n"
             "assert 'transformers' not in sys.modules, "
             "'transformers imported'\n"
+            "for m in ('yaml', 'PIL'):\n"
+            "    assert m not in sys.modules, m + ' imported'\n"
             "import sam_pt_torch.ops._cuda as c\n"
             "assert c._LIB is None, 'kernels built at import'\n"
             "print('ok')\n")

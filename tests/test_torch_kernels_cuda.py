@@ -1,6 +1,9 @@
 """The port's CUDA kernels K1/K2/K3/K4 against their plain PyTorch versions
 on the card, in bfloat16 at the main path's shapes (ViT-H windows and global
-blocks, 48 decoder pairs, both K3 directions also at ragged shapes; K4 at
+blocks, 48 decoder pairs, both K3 directions also at ragged shapes and
+at the automatic mask generator's 64 pairs x 7 tokens and the VIS path's
+tracked prompts (32 pairs x 455 and 457 tokens), token -> image also
+at head dim 32 (the decoder's self-attention from 1024 tokens); K4 at
 ViT-H global width and over ViT-H windows; the window body also at head
 dims 64 and 128 and over small, rectangular and ragged windows; the flash
 body also at ViT-B/L widths, on ragged grids and at head dims 16 and
@@ -145,6 +148,68 @@ class TestKernelsOnCard:
             q, k, v, kv_valid=None if valid is None else valid.to(
                 torch.uint8), **kw)
         _close(got, fa.cross_attention_plain(q, k, v, kv_valid=valid, **kw))
+
+    @pytest.mark.parametrize("direction", ["token_to_image",
+                                           "image_to_token"])
+    def test_cross_k3_generator_shape(self, gen, direction):
+        """K3 at the automatic mask generator's decode: 64 one-point
+        prompts, 7 tokens (5 output tokens, the point, the pad point)
+        against 4096 image tokens; image -> token with the decoder's key
+        mask, every token valid."""
+        b, nt = 64, 7
+        nq, nk = (nt, 4096) if direction == "token_to_image" else (4096, nt)
+        q = _randn(gen, b, nq, 128)
+        k, v = _randn(gen, b, nk, 128), _randn(gen, b, nk, 128)
+        kw = dict(heads=8, divisor=4.0)
+        valid = None
+        if direction == "image_to_token":
+            valid = torch.ones((b, nk), dtype=torch.bool, device="cuda")
+        got = fa.cross_attention_cuda(
+            q, k, v, kv_valid=None if valid is None else valid.to(
+                torch.uint8), **kw)
+        _close(got, fa.cross_attention_plain(q, k, v, kv_valid=valid, **kw))
+
+    @pytest.mark.parametrize("direction", ["token_to_image",
+                                           "image_to_token"])
+    @pytest.mark.parametrize("nt", [455, 457])
+    def test_cross_k3_vis_prompt_shape(self, gen, direction, nt):
+        """K3 at the VIS path's tracked prompts: a decode chunk of 32
+        pairs, 28 masks' prompts (5 output tokens, 17 points, 16 positives
+        of each of 27 other masks, the pad; 2 box corners more in a
+        refinement pass) against 4096 image tokens; image -> token (on
+        the token -> image kernel above 64 keys) with the pad slot masked
+        out."""
+        b = 32
+        nq, nk = (nt, 4096) if direction == "token_to_image" else (4096, nt)
+        q = _randn(gen, b, nq, 128)
+        k, v = _randn(gen, b, nk, 128), _randn(gen, b, nk, 128)
+        kw = dict(heads=8, divisor=4.0)
+        valid = None
+        if direction == "image_to_token":
+            valid = torch.ones((b, nk), dtype=torch.bool, device="cuda")
+            valid[:, -1] = False
+        got = fa.cross_attention_cuda(
+            q, k, v, kv_valid=None if valid is None else valid.to(
+                torch.uint8), **kw)
+        _close(got, fa.cross_attention_plain(q, k, v, kv_valid=valid, **kw))
+
+    @pytest.mark.parametrize("nt,masked", [(1609, True), (1024, False),
+                                           (1100, True)])
+    def test_cross_k3_head_dim_32(self, gen, nt, masked):
+        """K3 at head dim 32 (the token -> image kernel): the decoder's
+        token self-attention over 1024 tokens or more, as 100 masks'
+        prompts give it, 8 heads, divisor sqrt(32), with and without the
+        key mask, over token counts past and off a 64-row tile."""
+        x, k, v = (_randn(gen, 32, nt, 256) for _ in range(3))
+        kw = dict(heads=8, divisor=32 ** 0.5)
+        valid = None
+        if masked:
+            valid = torch.rand((32, nt), generator=gen, device="cuda") > 0.3
+            valid[:, 0] = True
+        got = fa.cross_attention_cuda(
+            x, k, v, kv_valid=None if valid is None else valid.to(
+                torch.uint8), **kw)
+        _close(got, fa.cross_attention_plain(x, k, v, kv_valid=valid, **kw))
 
     @pytest.mark.parametrize("b,kh,kw,d", [
         (64, 64, 64, 80), (2, 16, 70, 80), (64, 15, 15, 80),  # flash

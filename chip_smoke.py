@@ -135,8 +135,22 @@ Phases, in order; any failure exits non-zero before the verdict line:
      the random weights as built, which keep no proposal: exit 0,
      scored); the phase's own seconds. After it, K3 at the evaluate
      run's prompt length (`vis_kernel_cases`) against its plain version.
+ 19. TAPIR and TapNet phase: for each, `build_sam_pt(sam="vit_b",
+     tracker=..., **DEFAULT_SETTINGS)` (SAM bf16, the tracker f32 at its
+     published widths, random weights, the occlusion and IoU biases set)
+     over a DAVIS-shaped 24-frame x 2-object video: launches equal to the
+     schedule, output checks, a timed second pass, phase 5's check at
+     ViT-B; then each tracker alone over 17 points through 24 x 480 x 854
+     (finite, TapNet pinned at its query frames, timed), and TAPIR, TapNet
+     and the online TAPIR (4 frames streamed) on 8 x 96 x 160, the card
+     against the CPU, TF32 off; the phase's seconds. Then phase 11's CLI
+     run with `model/point_tracker=tapir` on the tree's first video
+     (masks equal to the direct forward's, the `python -m` entry point),
+     and both standalone tracker demos as subprocesses over phase 17's
+     PNG frames (exit 0, their frames/s).
 Then the script's seconds, one JSON line with the per-kernel numbers
-(rows of K1-K4 at the main path's shapes, K1/K2 at ViT-B's,
+(rows of K1-K4 at the main path's shapes, K1/K2 at ViT-B's with the
+default model's launches and phase 19's,
 `global_attention_crop` at phase 13's grid, `image_to_token_interactive`
 at phase 14's 325 token keys, `cross_attention_hq` at phase 15's pairs
 and tokens, `cross_attention_amg` at phase 18's generator batch,
@@ -747,9 +761,15 @@ def bias_for_a_live_run(sam_pt) -> None:
     """With N(0, 0.02^2) weights every point would be invisible (sigmoid ~
     0.5 < 0.7) and every IoU below the 0.7 gate, so no prompt would reach
     the decoder's visible-point paths and every plane would be gated.
-    Two output biases are set so that both paths are live."""
+    Two output biases are set so that both paths are live: the tracker's
+    visibility (PIPS's visibility head; TAPIR's and TapNet's occlusion
+    logits, at -3) and SAM's IoU head."""
     with torch.no_grad():
-        sam_pt.point_tracker.model.vis_predictor[0].bias.fill_(3.0)
+        model = sam_pt.point_tracker.model
+        if hasattr(model, "occlusion_out"):  # TAPIR, TapNet
+            model.occlusion_out.bias.fill_(-3.0)
+        else:
+            model.vis_predictor[0].bias.fill_(3.0)
         sam_pt.sam_predictor.model.mask_decoder.iou_prediction_head.layers[
             -1].bias.fill_(1.0)
 
@@ -1397,12 +1417,14 @@ def direct_masks(model, cfg, video_id: int) -> tuple:
     return reader.vid_name, [mapper.remap_index_mask(m) for m in fused]
 
 
-def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
+def cli_phase(fa, card: str, model=CLI_MODEL, videos=None,
+              label: str = "cli") -> None:
     """The port's VOS evaluation CLI with the repo's default model over a
     synthetic DAVIS-2017 tree of two 24 x 480 x 854 videos (see the
-    module's docstring, phase 11). `model` holds the overrides that give
-    both runs their model (a rehearsal on the CPU passes `device=cpu` and
-    a small model)."""
+    module's docstring, phase 11), or its first `videos`. `model` holds
+    the overrides that give both runs their model (a rehearsal on the CPU
+    passes `device=cpu` and a small model; phase 19 the TAPIR tracker);
+    `label` starts the log lines."""
     import shutil
     import tempfile
 
@@ -1417,8 +1439,8 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
                                                                    "build"))
     try:
         t0 = time.perf_counter()
-        names = make_davis_tree(os.path.join(root, "DAVIS"))
-        log(f"cli: wrote the DAVIS tree ({len(names)} videos x "
+        names = make_davis_tree(os.path.join(root, "DAVIS"), videos=videos)
+        log(f"{label}: wrote the DAVIS tree ({len(names)} videos x "
             f"{CLI_FRAMES} PNG frames {H} x {W}) in "
             f"{time.perf_counter() - t0:.1f} s")
         overrides = [
@@ -1430,13 +1452,13 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
         sam_pt = instantiate(cfg["model"])
         bias_for_a_live_run(sam_pt)
         torch.cuda.synchronize()
-        log(f"cli: instantiated cfg['model'] ({type(sam_pt).__name__}: SAM "
-            f"{len(sam_pt.sam_predictor.model.image_encoder.blocks)} blocks "
+        log(f"{label}: instantiated cfg['model'] ({type(sam_pt).__name__}: "
+            f"SAM {len(sam_pt.sam_predictor.model.image_encoder.blocks)} blocks "
             f"{sam_pt.sam_predictor.model.dtype}, "
             f"{type(sam_pt.point_tracker).__name__}) on {sam_pt.device} in "
             f"{time.perf_counter() - t0:.1f} s")
         if sam_pt.device.type != cfg["device"]:
-            raise SystemExit(f"cli: the model is not on {cfg['device']}")
+            raise SystemExit(f"{label}: the model is not on {cfg['device']}")
         cfg["model"] = sam_pt
         rng_state = sam_pt.rng.bit_generator.state
 
@@ -1444,25 +1466,26 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
         results = evaluate(cfg)
         torch.cuda.synchronize()
         launches = dict(fa.LAUNCHES)
-        expected = launch_schedule(sam_pt, [CLI_FRAMES] * 2,
-                                   [2 * CLI_FRAMES] * 2)
-        log(f"cli: launches {launches} expected {expected}")
+        expected = launch_schedule(sam_pt, [CLI_FRAMES] * len(names),
+                                   [2 * CLI_FRAMES] * len(names))
+        log(f"{label}: launches {launches} expected {expected}")
         if launches != expected:
-            raise SystemExit("cli: launch counts differ from the schedule")
+            raise SystemExit(f"{label}: launch counts differ from the "
+                             f"schedule")
         out = cfg["output"]
         written = {n: sorted(os.listdir(os.path.join(out, n)))
                    for n in names}
         jf = results.get("J&F-Mean")
         ok = (all(len(v) == CLI_FRAMES for v in written.values())
               and os.path.exists(out + ".zip")
-              and results["total_frames"] == 2 * CLI_FRAMES
+              and results["total_frames"] == len(names) * CLI_FRAMES
               and jf is not None and np.isfinite(jf) and 0.0 <= jf <= 1.0)
-        log(f"cli: evaluate wrote {[len(v) for v in written.values()]} "
+        log(f"{label}: evaluate wrote {[len(v) for v in written.values()]} "
             f"PNGs and {os.path.basename(out)}.zip, "
             f"{results['total_frames']} frames, J&F {jf} "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit("cli: the run's outputs are wrong")
+            raise SystemExit(f"{label}: the run's outputs are wrong")
 
         sam_pt.rng.bit_generator.state = rng_state
         for v in range(len(names)):
@@ -1473,10 +1496,11 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
                 labels |= set(np.unique(got).tolist())
                 if not np.array_equal(got, masks[t]):
                     diff = int((got != masks[t]).sum())
-                    raise SystemExit(f"cli: {name}/{frame} differs from the "
-                                     f"direct forward at {diff} pixels")
-            log(f"cli: {name}: {len(written[name])} written masks equal the "
-                f"direct forward's pixel for pixel, labels {sorted(labels)}")
+                    raise SystemExit(f"{label}: {name}/{frame} differs from "
+                                     f"the direct forward at {diff} pixels")
+            log(f"{label}: {name}: {len(written[name])} written masks equal "
+                f"the direct forward's pixel for pixel, labels "
+                f"{sorted(labels)}")
 
         reader = next(iter(build_dataset(cfg).get_datasets()))
         t0 = time.perf_counter()
@@ -1485,7 +1509,7 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
         read_s = time.perf_counter() - t0
         cfg["output"] = f"{root}/out1"
         timed = evaluate(cfg)
-        log(f"cli: timed evaluate: {timed['total_frames']} frames in "
+        log(f"{label}: timed evaluate: {timed['total_frames']} frames in "
             f"{timed['total_process_time']:.3f} s = FPS {timed['fps']:.3f}; "
             f"the host reads a video ({CLI_FRAMES} PNG frames and the "
             f"first annotation, {H} x {W}) in {read_s:.3f} s; on {card}")
@@ -1502,13 +1526,13 @@ def cli_phase(fa, card: str, model=CLI_MODEL) -> None:
         on = [line for line in lines if line.startswith("Model on")]
         ok = (proc.returncode == 0 and len(fps) == 1
               and on == [f"Model on {sam_pt.device}"])
-        log(f"cli: python -m sam_pt_torch.vos_eval.eval (1 video, 8 frames) "
-            f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+        log(f"{label}: python -m sam_pt_torch.vos_eval.eval (1 video, 8 "
+            f"frames) exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
             f"{'; '.join(on + fps)} {'OK' if ok else 'FAIL'}")
         if not ok:
             log(proc.stdout[-4000:])
             log(proc.stderr[-4000:])
-            raise SystemExit("cli: the entry point failed")
+            raise SystemExit(f"{label}: the entry point failed")
         del sam_pt, cfg
         torch.cuda.empty_cache()
     finally:
@@ -2671,6 +2695,224 @@ def vis_phase(fa, card: str, model=VIS_MODEL,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 19: TAPIR and TapNet under SamPt with SAM ViT-B (the YAMLs'
+# settings, random f32 weights; no head scaled: on these weights the card's
+# tracks stay well within TRACKER_CPU_ATOL of the CPU's, PERF.md §6).
+HAIKU_TRACKERS = ("tapir", "tapnet")
+HAIKU_VIDEO = (24, 2)
+
+
+def build_haiku_sam_pt(device, name: str):
+    """`build_sam_pt(device, sam="vit_b", tracker=name,
+    **DEFAULT_SETTINGS)`, SAM in bf16."""
+    from sam_pt_torch.build import DEFAULT_SETTINGS, build_sam_pt
+
+    return build_sam_pt(device, dtype=torch.bfloat16, seed=0, sam="vit_b",
+                        tracker=name, **DEFAULT_SETTINGS)
+
+
+def tracker_queries(rng, n_points: int, frames, h: int, w: int):
+    """[1, n_points, 3] (t, x, y): query frames cycling through `frames`,
+    positions uniform 8 pixels inside the frame."""
+    ts = np.asarray(frames)[np.arange(n_points) % len(frames)]
+    xy = rng.uniform([8, 8], [w - 8, h - 8], (n_points, 2))
+    return np.concatenate([ts[:, None], xy], 1)[None].astype(np.float32)
+
+
+def haiku_tracker_phase(fa, device, fuse, card: str, profiling: bool,
+                        build=build_haiku_sam_pt) -> dict:
+    """Phase 19, for TAPIR and for TapNet: SamPt with SAM ViT-B (bf16) and
+    the tracker (f32) over a DAVIS-shaped 24-frame x 2-object video
+    (launches equal to the schedule, output checks, a timed second pass,
+    the reference check through ViT-B's encoder and the decode chain;
+    with --profile its stage split), then the trackers alone
+    (`haiku_tracker_checks`). Returns each tracker's launches."""
+    t_phase = time.perf_counter()
+    found = {}
+    t, m = HAIKU_VIDEO
+    for name in HAIKU_TRACKERS:
+        t0 = time.perf_counter()
+        sam_pt = build(device, name)
+        bias_for_a_live_run(sam_pt)
+        torch.cuda.synchronize()
+        log(f"{name}: built SamPt (SAM {sam_pt.sam_predictor.model.dtype}, "
+            f"{type(sam_pt.point_tracker).__name__} float32, random) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        video = make_video(t, m, seed=12)
+        n_points = (sam_pt.positive_points_per_mask
+                    + sam_pt.negative_points_per_mask)
+        fa.reset_launch_counts()
+        out, masks = run_video(sam_pt, video, fuse)
+        torch.cuda.synchronize()
+        found[name] = dict(fa.LAUNCHES)
+        expected = launch_schedule(sam_pt, [t], [t * m])
+        log(f"{name}: launches {found[name]} expected {expected}")
+        if found[name] != expected:
+            raise SystemExit(f"{name}: launch counts differ")
+        log(f"{name}: video {t} frames x {m} objects: "
+            + check_outputs(out, masks, t, m, n_points))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_video(sam_pt, video, fuse)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"{name}: timed pass {wall:.3f} s for {t} frames = "
+            f"{t / wall:.3f} frames/s on {card}")
+        reference_phase(sam_pt, fa, video, label=f"{name} reference")
+        if profiling:
+            stage_split(sam_pt, f"{name}_{t}x{m}", (
+                "_encode_all_frames", "extract_query_points",
+                "_track_points_device", "_apply_sam_device"),
+                lambda: run_video(sam_pt, video, fuse), card)
+        del sam_pt
+        torch.cuda.empty_cache()
+    haiku_tracker_checks(device, card)
+    log(f"tapir/tapnet: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return found
+
+
+def haiku_tracker_checks(device, card: str, frames: int = 24) -> None:
+    """TAPIR and TapNet alone (random f32 weights, the YAMLs' settings):
+    17 points through a `frames` x 480 x 854 video, query frames 0,
+    frames // 3 and the last (finite; TapNet pinned at the query frames,
+    TAPIR not: its refinement moves the query frame too), a warm pass, then a timed one.
+    Then TAPIR, TapNet and the online TAPIR (4 frames streamed one at a
+    time from the query frame) on an 8-frame 96 x 160 video, the card's
+    run against the same weights' run on the CPU, TF32 off."""
+    from sam_pt_torch.build import TRACKER_SETTINGS
+    from sam_pt_torch.models.tracker import TRACKER_REGISTRY
+    from sam_pt_torch.models.tracker.tapir.tracker import (
+        OnlineTapirPointTracker)
+
+    rng = np.random.default_rng(13)
+    n_points = 17
+    video = torch.from_numpy(rng.integers(0, 255, (1, frames, H, W, 3)
+                                          ).astype(np.uint8)).to(device)
+    qp = tracker_queries(rng, n_points, [0, frames // 3, frames - 1], H, W)
+    rows = np.arange(n_points)
+    for name in HAIKU_TRACKERS:
+        tracker = TRACKER_REGISTRY[name](allow_random_init=True, seed=1,
+                                         device=device,
+                                         **TRACKER_SETTINGS[name])
+        tracker.forward_device(video, qp)  # warm
+        fresh = video.clone()  # a new tensor: the feature cache misses
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj, vis = tracker.forward_device(fresh, qp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traj = traj[0].cpu().numpy()
+        pin = float(np.abs(traj[qp[0, :, 0].astype(int), rows]
+                           - qp[0, :, 1:]).max())
+        pinned = name == "tapnet"
+        ok = (traj.shape == (frames, n_points, 2) and np.isfinite(traj).all()
+              and (pin <= 1e-3 or not pinned)
+              and tuple(vis.shape) == (1, frames, n_points))
+        log(f"tracker {name}: {frames} frames {H} x {W}, {n_points} points: "
+            f"timed pass {wall:.3f} s = {frames / wall:.3f} frames/s on "
+            f"{card}; finite, query-frame error {pin:.2e} px "
+            + ("(<= 1e-3)" if pinned else "(not pinned)")
+            + f", moved up to "
+            f"{float(np.abs(traj - qp[0, None, :, 1:]).max()):.1f} px, "
+            f"visible {float(vis.mean()):.3f} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"tracker {name}: bad trajectories")
+        del tracker, fresh
+        torch.cuda.empty_cache()
+
+    small = torch.from_numpy(rng.integers(0, 255, (1, 8, 96, 160, 3)).astype(
+        np.uint8))
+    qp = tracker_queries(rng, n_points, [0, 7], 96, 160)
+
+    def online(tracker, frames):
+        tracker.init_tracking(frames[0], qp[0, :, 1:])
+        return torch.from_numpy(np.stack(
+            [tracker.track_frame(f)[0] for f in frames[:4]]))
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name in (*HAIKU_TRACKERS, "online tapir"):
+            runs = []
+            for dev, video_on in ((device, small.to(device)), ("cpu", small)):
+                if name == "online tapir":
+                    tracker = OnlineTapirPointTracker(
+                        allow_random_init=True, seed=1, device=dev)
+                else:
+                    tracker = TRACKER_REGISTRY[name](
+                        allow_random_init=True, seed=1, device=dev,
+                        **TRACKER_SETTINGS[name])
+                if runs:  # the card's weights, on the CPU
+                    tracker.model.load_state_dict(weights)
+                else:
+                    weights = {k: v.cpu() for k, v in
+                               tracker.model.state_dict().items()}
+                runs.append(online(tracker, video_on[0]) if name ==
+                            "online tapir" else
+                            tracker.forward_device(video_on, qp)[0][0].cpu())
+            err = float((runs[0] - runs[1]).abs().max())
+            ok = (bool(torch.isfinite(runs[0]).all())
+                  and err <= TRACKER_CPU_ATOL)
+            log(f"tracker {name} card vs CPU (8 x 96 x 160, f32, TF32 off"
+                + (", 4 frames streamed" if name == "online tapir" else "")
+                + f"): max |diff| {err:.3e} px (<= {TRACKER_CPU_ATOL:g}) "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"tracker {name}: the card disagrees with "
+                                 f"the CPU")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+# The CLI phase's `evaluate` with TAPIR in the default model, one video.
+TAPIR_CLI_MODEL = ("model/point_tracker=tapir", *CLI_MODEL)
+
+
+def tracker_demo_phase(card: str, args=()) -> dict:
+    """`python -m sam_pt_torch.models.tracker.<name>.demo` for TAPIR and
+    TapNet as subprocesses over the demo phase's PNG frames (all 24, at
+    the demo's 512-pixel longest side), on the card unless `args` say
+    otherwise: exit 0 and the frames/s of the steady-state forward.
+    Returns each demo's line."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.realpath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tracker_demo_",
+                            dir=os.path.join(here, "build"))
+    found = {}
+    try:
+        folder, points = write_demo_inputs(root)
+        for name in HAIKU_TRACKERS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 f"sam_pt_torch.models.tracker.{name}.demo", "--frames",
+                 folder, "--query-points", points, "--frame-stride", "1",
+                 "--max-frames", str(DEMO_FRAMES), "--out",
+                 os.path.join(root, name), *args],
+                cwd=here, capture_output=True, text=True, timeout=600)
+            lines = [line for line in proc.stdout.splitlines()
+                     if "frames/s" in line]
+            ok = proc.returncode == 0 and len(lines) == 1
+            found[name] = lines[0] if lines else None
+            log(f"tracker demo {name}: exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s: {'; '.join(lines)} on "
+                f"{card} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                log(proc.stdout[-4000:])
+                log(proc.stderr[-4000:])
+                raise SystemExit(f"tracker demo {name}: the entry point "
+                                 f"failed")
+        return found
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # JSON row -> (source, the TPU function it replaces)
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -2691,11 +2933,12 @@ VIT_B_ROWS = ("window", "global")
 def kernel_json(report: dict, launches: dict, route_launches: dict,
                 default_launches: dict, crop_launches: dict,
                 interactive_launches: dict, *, hq_launches: dict,
-                vis_launches: dict) -> list:
+                vis_launches: dict, haiku_launches: dict) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
-    ViT-B's shapes (`_vit_b`) with the default model's launches; then K2
+    ViT-B's shapes (`_vit_b`) with the default model's launches (and, as
+    `launches_tapir` and `launches_tapnet`, phase 19's); then K2
     on the cropped grid with the crop phase's launches and K3
     image->token at the interactive capacity with the interactive run's
     image->token launches (2 of the 5 K3 calls of a decoder pass); then
@@ -2739,6 +2982,8 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
         kernels.append({"name": f"{key}_attention_vit_b", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": default_launches[key],
+                        **{f"launches_{name}": counts[key]
+                           for name, counts in haiku_launches.items()},
                         "max_abs_err": r["max_abs_err"],
                         **{f: r[f] for f in TIMES}})
     for name, case, key, count in (
@@ -2963,13 +3208,19 @@ def main() -> int:
     report.update(measure_cases(vis_kernel_cases(
         fa, device, vis_launches["pairs"], max(vis_launches["tracked"])),
         profiling))
+    haiku_launches = haiku_tracker_phase(fa, device, device_fuse_index_masks,
+                                         card, profiling)
+    t0 = time.perf_counter()
+    cli_phase(fa, card, model=TAPIR_CLI_MODEL, videos=1, label="cli tapir")
+    tracker_demo_phase(card)
+    log(f"cli tapir and tracker demos: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
         f"to the verdict")
     log(json.dumps({"kernels": kernel_json(
         report, launches, route_launches, default_launches, crop_launches,
         interactive_launches, hq_launches=hq_launches,
-        vis_launches=vis_launches)}))
+        vis_launches=vis_launches, haiku_launches=haiku_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ configuration. `sam=` picks the SAM encoder (`vit_b`, `vit_l`, `vit_h`, or
 `vit_t`, MobileSAM's TinyViT), `hq=True` HQ-SAM's decoder (HQ-SAM ViT-H is
 `sam="vit_h", hq=True`, Light HQ-SAM `sam="vit_t", hq=True`), and
 `tracker=` the point tracker (`cotracker`, `pips`, `pips_plus_plus`,
-`raft`, each as its `configs/model/point_tracker/*.yaml` sets it). The
+`raft`, `tapir`, `tapnet`, each as its `configs/model/point_tracker/*.yaml`
+sets it). The
 repo's default model, `configs/model/sam_pt.yaml`, is
 `build_sam_pt(device, sam="vit_b", tracker="pips", **DEFAULT_SETTINGS)`;
 with `**REINIT_SETTINGS` it builds the point re-initialisation
@@ -19,8 +20,8 @@ for long videos).
 Weights are random: SAM's (and CoTracker's, after SAM's) are drawn from one
 generator on the device seeded with `seed`, every parameter and buffer
 ~ N(0, 0.02^2) in the working dtype (TinyViT's BatchNorm statistics then
-reset to mean 0, variance 1); PIPS, PIPS++ and RAFT are built in
-float32 by their own constructors, seeded with `seed + 1`.
+reset to mean 0, variance 1); PIPS, PIPS++, RAFT, TAPIR and TapNet are
+built in float32 by their own constructors, seeded with `seed + 1`.
 """
 from __future__ import annotations
 
@@ -64,6 +65,8 @@ TRACKER_SETTINGS = {
     "pips_plus_plus": dict(stride=8, max_sequence_length=128, iters=16,
                            image_size=(512, 896)),
     "raft": dict(iters=32),
+    "tapir": dict(visibility_threshold=0.1, query_chunk_size=64),
+    "tapnet": dict(visibility_threshold=0.5, query_chunk_size=16),
 }
 
 

@@ -36,6 +36,19 @@ class PointTracker(abc.ABC):
     def __call__(self, rgbs, query_points):
         return self.forward(rgbs, query_points)
 
+    def per_video(self, rgbs: torch.Tensor, compute: Callable[[], object]):
+        """`compute()` once per video tensor, kept for the next call with
+        the same tensor (the orchestrator calls once per batch of masks):
+        the key is the tensor's storage, shape, strides and dtype, and the
+        cache holds the tensor, so no other video can take its memory
+        while cached."""
+        key = (rgbs.data_ptr(), tuple(rgbs.shape), rgbs.stride(), rgbs.dtype)
+        cache = getattr(self, "_video_cache", None)
+        if cache is None or cache[1] != key:
+            self._video_cache = None  # free the last video's entry first
+            self._video_cache = (rgbs, key, compute())
+        return self._video_cache[2]
+
 
 def encode_in_chunks(encode: Callable[[torch.Tensor], torch.Tensor],
                      video: torch.Tensor, chunk: int,

@@ -46,17 +46,11 @@ class PipsPointTracker(PointTracker):
                            allow_random_init=allow_random_init, seed=seed,
                            device=device)
         self.model.to(dtype).eval().requires_grad_(False)
-        self._fmap_cache = None
 
     def _features(self, rgbs: torch.Tensor) -> torch.Tensor:
-        """The video's features, encoded once per video tensor: the key is
-        the tensor's storage, shape, strides and dtype, and the cache holds
-        the tensor, so no other video can take its memory while cached."""
-        key = (rgbs.data_ptr(), tuple(rgbs.shape), rgbs.stride(), rgbs.dtype)
-        if self._fmap_cache is None or self._fmap_cache[1] != key:
-            self._fmap_cache = (rgbs, key, encode_in_chunks(
-                self.model.encode_frames, rgbs[0], self.encode_chunk))
-        return self._fmap_cache[2]
+        """The video's features, encoded once per video tensor."""
+        return self.per_video(rgbs, lambda: encode_in_chunks(
+            self.model.encode_frames, rgbs[0], self.encode_chunk))
 
     def _link(self, fmaps: torch.Tensor, query_points: np.ndarray,
               reverse: bool) -> Tuple[np.ndarray, np.ndarray]:

@@ -11,7 +11,11 @@ converters (`convert_sam_state_dict`, `convert_cotracker_state_dict`,
 `convert_pips_state_dict`, `convert_pips2_state_dict`,
 `convert_raft_state_dict` in `sam_pt_tpu/utils/checkpoint.py`): they take a
 JAX parameter tree (nested dicts of arrays, with or without the top-level
-"params") and return the port's float32 state dict.
+"params") and return the port's float32 state dict. TAPIR and TapNet
+publish numpy-pickled haiku files: `load_tapir_checkpoint` and
+`load_tapnet_checkpoint` read them through copies of the JAX package's
+haiku key maps into its flax layout, which the port's module names follow
+(`tapir_state_dict_from_jax`, `tapnet_state_dict_from_jax`).
 
 Layouts: Dense kernel [in, out] -> Linear weight [out, in] (and Conv1d
 weight [out, in, 1]); Conv kernel [kh, kw, in, out] -> Conv2d weight
@@ -533,3 +537,245 @@ def cotracker_state_dict_from_jax(params: Dict[str, Any]
     _lin(sd, "ffeat_updater.0", p["ffeat_updater"])
     _lin(sd, "vis_predictor.0", p["vis_predictor"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# TAPIR / TapNet: numpy-pickled haiku checkpoints. The key maps are copies
+# of the JAX package's (`sam_pt_tpu/utils/checkpoint.py`): haiku -> the JAX
+# package's flax tree (numpy), then the generic tree walk to the port's
+# state dict, whose module names are the flax ones.
+# ---------------------------------------------------------------------------
+
+def _make_put(p: Dict[str, Any]):
+    """Nested-dict writer: put('a/b/c', v) sets p['a']['b']['c'] =
+    asarray(v)."""
+
+    def put(path: str, value):
+        node = p
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = np.asarray(value)
+
+    return put
+
+
+def load_haiku_npy(path: str) -> Dict[str, Any]:
+    """A numpy-pickled haiku params dict (`{'params': ..., 'state': ...}`
+    files unwrapped to their params)."""
+    raw = np.load(path, allow_pickle=True).item()
+    if "params" in raw:
+        raw = raw["params"]
+    return raw
+
+
+def convert_tapir_haiku_params(hk_params: Dict[str, Any]) -> Dict[str, Any]:
+    """Haiku TAPIR params -> the JAX package's flax tree: module paths
+    ('tapir/~/resnet/~/block_group_i/~/block_j/~/conv_0',
+    'tapir/~/pips_mlp_mixer/block_k/...') renamed; conv kernels are
+    already [kh, kw, in, out] and linear kernels [in, out]."""
+    p: Dict[str, Any] = {}
+    put = _make_put(p)
+    for key, leaf in hk_params.items():
+        parts = key.replace("~/", "").replace("tapir/", "").split("/")
+        mapped = _map_tapir_module(parts)
+        if mapped is None:
+            continue
+        for wname, w in leaf.items():
+            out_name = {"w": "kernel", "b": "bias",
+                        "scale": "scale", "offset": "offset"}.get(wname, wname)
+            put(f"{mapped}/{out_name}", np.asarray(w))
+    return {"params": p}
+
+
+def _map_tapir_module(parts):
+    joined = "/".join(parts)
+    if parts[0] == "resnet":
+        if parts[-1] == "initial_conv":
+            return "resnet/initial_conv"
+        m = re.search(r"block_group_(\d)(?:/block_(\d))?/?(.*)", joined)
+        if not m:
+            return None
+        gi, bi, rest = m.group(1), m.group(2) or "0", m.group(3)
+        base = f"resnet/group{gi}_block{bi}"
+        rest = rest.strip("/")
+        if rest.startswith("conv_"):
+            return f"{base}/{rest}"
+        if rest == "shortcut_conv":
+            return f"{base}/shortcut_conv"
+        if rest.startswith("instancenorm_"):
+            return f"{base}/norm_{rest.split('_')[-1]}"
+        return None
+    if parts[0] == "pips_mlp_mixer":
+        return _map_tapir_mixer(parts[1:])
+    heads = ("cost_volume_regression_1", "cost_volume_regression_2",
+             "cost_volume_occlusion_1", "cost_volume_occlusion_2",
+             "occlusion_out")
+    return parts[-1] if parts[-1] in heads else None
+
+
+def _map_tapir_mixer(parts):
+    """Haiku's auto-numbered mixer names: 'linear' the input projection,
+    'linear_1' the output head, the top-level 'layer_norm' the final norm;
+    in each block ('block', 'block_1', ...) 'layer_norm' / 'layer_norm_1'
+    the pre-norms, 'mlp1_up' / 'mlp1_up_1' the two depthwise convs,
+    'mlp2_up' / 'mlp2_down' the channel MLP."""
+    if not parts:
+        return None
+    head = parts[0]
+    base = "pips_mixer"
+    if head == "linear":
+        return f"{base}/input_proj"
+    if head == "linear_1":
+        return f"{base}/out_proj"
+    if head == "layer_norm":
+        return f"{base}/out_norm"
+    if head.startswith("block"):
+        idx = 0 if head == "block" else int(head.split("_")[-1])
+        sub = parts[1] if len(parts) > 1 else ""
+        mapping = {"layer_norm": "norm1", "layer_norm_1": "norm2",
+                   "mlp1_up": "dw1", "mlp1_up_1": "dw2",
+                   "mlp2_up": "mlp2_up", "mlp2_down": "mlp2_down"}
+        if sub in mapping:
+            return f"{base}/block_{idx}/{mapping[sub]}"
+    return None
+
+
+def convert_tapnet_haiku_params(raw: Dict[str, Any]) -> Dict[str, Any]:
+    """Haiku TapNet params and state -> the JAX package's flax tree: the
+    Conv3D heads' kernels [1, kh, kw, in, out] lose their leading 1, the
+    BatchNorm affine [1, 1, 1, C] is flattened, and each BatchNorm's
+    moving averages (the `state`'s '.../batch_norm/~/mean_ema' and
+    'var_ema', their debiased 'average') become its mean and variance."""
+    hk_params = raw.get("params", raw)
+    hk_state = raw.get("state", {})
+    p: Dict[str, Any] = {}
+    put = _make_put(p)
+
+    def map_resnet(sub):
+        if "tsm_resnet_stem" in sub:
+            return "tsm_resnet/initial_conv"
+        m = re.search(r"tsm_resnet_unit_(\d+)/block_(\d+)/(.*)", sub)
+        if not m:
+            return None
+        ui, bi, rest = m.group(1), m.group(2), m.group(3).strip("/")
+        rest_map = {"conv_0": "conv_0", "conv_2": "conv_2",
+                    "shortcut_conv": "shortcut_conv",
+                    "batch_norm": "bn_pre", "batch_norm_1": "bn_1"}
+        return (f"tsm_resnet/unit{ui}_block{bi}/{rest_map[rest]}"
+                if rest in rest_map else None)
+
+    conv3d_heads = {"cost_volume_regression_1", "cost_volume_regression_2",
+                    "cost_volume_occlusion_1"}
+    heads = conv3d_heads | {"cost_volume_occlusion_2", "occlusion_out"}
+
+    for key, leaf in hk_params.items():
+        sub = key.replace("~/", "").replace("tap_net/", "")
+        sub = sub.replace("tsm_resnet_video/", "")
+        tail = sub.split("/")[-1]
+        mapped = (map_resnet(sub) if "tsm_resnet" in sub
+                  else (tail if tail in heads else None))
+        if mapped is None:
+            continue
+        for wname, w in leaf.items():
+            w = np.asarray(w)
+            if wname == "w" and tail in conv3d_heads:
+                w = w[0]
+            if wname in ("scale", "offset"):
+                w = w.reshape(-1)
+            out_name = {"w": "kernel", "b": "bias", "scale": "scale",
+                        "offset": "bias"}.get(wname, wname)
+            put(f"{mapped}/{out_name}", w)
+
+    for key, leaf in hk_state.items():
+        sub = key.replace("~/", "").replace("tap_net/", "")
+        sub = sub.replace("tsm_resnet_video/", "")
+        stat = "mean" if "mean_ema" in sub else (
+            "var" if "var_ema" in sub else None)
+        if stat is None:
+            continue
+        mapped = map_resnet(sub.replace("/mean_ema", "").replace("/var_ema",
+                                                                 ""))
+        if mapped is None:
+            continue
+        avg = leaf.get("average", leaf) if isinstance(leaf, dict) else leaf
+        put(f"{mapped}/{stat}", np.asarray(avg).reshape(-1))
+    return {"params": p}
+
+
+# flax leaf name -> torch parameter or buffer name
+_FLAX_LEAF_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight",
+                    "offset": "bias", "mean": "running_mean",
+                    "var": "running_var"}
+
+
+def _flax_modules_state_dict(tree: Dict[str, Any], prefix: str = ""
+                             ) -> Dict[str, torch.Tensor]:
+    """A flax tree whose module paths are the port's module names -> its
+    state dict: kernels transposed by rank (Dense [in, out] -> [out, in],
+    1-D conv [k, in, out] -> [out, in, k], 2-D conv [kh, kw, in, out] ->
+    [out, in, kh, kw]); an `InstanceNormAffine` (`norm_<i>`) keeps its
+    `scale` and `offset`."""
+    sd: Dict[str, torch.Tensor] = {}
+    module = prefix.rstrip(".").rsplit(".", 1)[-1]
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            sd.update(_flax_modules_state_dict(node, f"{prefix}{name}."))
+            continue
+        w = _np(node)
+        if name == "kernel":
+            w = w.transpose({2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[w.ndim])
+        if not module.startswith("norm_"):
+            name = _FLAX_LEAF_NAMES[name]
+        sd[f"{prefix}{name}"] = _t(w)
+    return sd
+
+
+def tapir_state_dict_from_jax(params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX package's TAPIR parameter tree -> the port's `TAPIR` state
+    dict."""
+    return _flax_modules_state_dict(_root(params))
+
+
+def tapnet_state_dict_from_jax(params: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's TAPNet parameter tree -> the port's `TAPNet`
+    state dict (the BatchNorms' mean and var as running statistics)."""
+    return _flax_modules_state_dict(_root(params))
+
+
+def load_state_dict_strict_(model: nn.Module,
+                            sd: Dict[str, torch.Tensor], source: str
+                            ) -> nn.Module:
+    """Load `sd` into `model` whole: a key missing on either side, or a
+    shape that differs, raises and names the keys."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    extra = sorted(set(sd) - set(own))
+    bad = [f"{k}: {tuple(sd[k].shape)} in the file, {tuple(v.shape)} in "
+           f"the model" for k, v in own.items()
+           if k in sd and tuple(sd[k].shape) != tuple(v.shape)]
+    if missing or extra or bad:
+        raise ValueError(f"{source} does not fit {type(model).__name__}: "
+                         f"missing {missing[:8]}, unexpected {extra[:8]}, "
+                         f"shapes {bad[:8]}")
+    model.load_state_dict(sd)
+    return model
+
+
+def load_tapir_checkpoint(path: str, model: nn.Module) -> nn.Module:
+    """A public TAPIR .npy (haiku) into the port's `TAPIR`, whole. A file
+    of another configuration (the pyramid level sets the mixer's input
+    width) raises, naming the keys."""
+    sd = tapir_state_dict_from_jax(
+        convert_tapir_haiku_params(load_haiku_npy(path)))
+    return load_state_dict_strict_(model, sd, path)
+
+
+def load_tapnet_checkpoint(path: str, model: nn.Module) -> nn.Module:
+    """A public TapNet .npy (haiku params and state) into the port's
+    `TAPNet`, whole."""
+    raw = np.load(path, allow_pickle=True).item()
+    sd = tapnet_state_dict_from_jax(convert_tapnet_haiku_params(raw))
+    return load_state_dict_strict_(model, sd, path)

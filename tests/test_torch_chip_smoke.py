@@ -206,6 +206,10 @@ VIS_LAUNCHES = {"launches": {"window": 280, "global": 40, "cross": 1420,
                 "amg": 160, "sam_pt": 1260, "tracked": [28, 7], "pairs": 32,
                 "capacity": {"window": 84, "global": 12, "cross": 3720,
                              "relpos": 0}}
+HAIKU_LAUNCHES = {"tapir": {"window": 48, "global": 24, "cross": 140,
+                             "relpos": 0},
+                  "tapnet": {"window": 48, "global": 24, "cross": 140,
+                             "relpos": 0}}
 SECOND_CASE = {"cross": ("cross_masked", "_image_to_token"),
                "relpos": ("relpos_window", "_window")}
 # Cases whose errors count in a row without their times.
@@ -229,7 +233,8 @@ def test_kernel_json_rows_carry_both_timers(key):
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, launches, {"relpos": 1}, {"window": 48, "global": 24},
         CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
-        vis_launches=VIS_LAUNCHES)}
+        vis_launches=VIS_LAUNCHES,
+        haiku_launches=HAIKU_LAUNCHES)}
     row = rows[f"{key}_attention"]
     assert {"name", "route", "source", "replaces", "launches",
             "max_abs_err"} <= set(row)
@@ -247,15 +252,19 @@ def test_kernel_json_rows_carry_both_timers(key):
 @pytest.mark.parametrize("key", chip_smoke.VIT_B_ROWS)
 def test_kernel_json_vit_b_rows(key):
     """K1 and K2 at ViT-B's shapes are rows of their own, with the
-    default model's launches and every key of the contract."""
+    default model's launches (and TAPIR's and TapNet's SamPt runs') and
+    every key of the contract."""
     report = _report()
     rows = {r["name"]: r for r in chip_smoke.kernel_json(
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
         CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
-        vis_launches=VIS_LAUNCHES)}
+        vis_launches=VIS_LAUNCHES,
+        haiku_launches=HAIKU_LAUNCHES)}
     row = rows[f"{key}_attention_vit_b"]
     assert row["launches"] == {"window": 48, "global": 24}[key]
+    for name in ("tapir", "tapnet"):  # phase 19's runs, ViT-B's too
+        assert row[f"launches_{name}"] == HAIKU_LAUNCHES[name][key]
     assert (row["source"], row["replaces"]) == chip_smoke.KERNEL_SOURCES[key]
     assert row["max_abs_err"] == report[f"{key}_vit_b"]["max_abs_err"]
     for f in chip_smoke.TIMES:
@@ -275,7 +284,8 @@ def test_kernel_json_rows_of_this_slice(name, case, key, launches):
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
         CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
-        vis_launches=VIS_LAUNCHES)}
+        vis_launches=VIS_LAUNCHES,
+        haiku_launches=HAIKU_LAUNCHES)}
     row = rows[name]
     assert row["launches"] == launches
     assert (row["route"], row["source"], row["replaces"]) == (
@@ -295,7 +305,8 @@ def test_kernel_json_hq_row():
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
         CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
-        vis_launches=VIS_LAUNCHES)}
+        vis_launches=VIS_LAUNCHES,
+        haiku_launches=HAIKU_LAUNCHES)}
     row = rows["cross_attention_hq"]
     assert row["launches"] == 140
     assert row["launches_of"] == "token_to_image + image_to_token"
@@ -317,7 +328,8 @@ def test_kernel_json_amg_row():
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
         CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
-        vis_launches=VIS_LAUNCHES)}
+        vis_launches=VIS_LAUNCHES,
+        haiku_launches=HAIKU_LAUNCHES)}
     row = rows["cross_attention_amg"]
     assert row["launches"] == 160
     assert row["launches_of"] == "token_to_image + image_to_token"
@@ -344,7 +356,8 @@ def test_kernel_json_vis_rows(name, cases, launches):
         report, {"window": 420, "global": 60, "cross": 280, "relpos": 0},
         {"relpos": 1}, {"window": 48, "global": 24, "cross": 140},
         CROP_LAUNCHES, INTERACTIVE_LAUNCHES, hq_launches=HQ_LAUNCHES,
-        vis_launches=VIS_LAUNCHES)}
+        vis_launches=VIS_LAUNCHES,
+        haiku_launches=HAIKU_LAUNCHES)}
     row = rows[name]
     assert row["launches"] == launches and row["launches_of"]
     assert (row["route"], row["source"], row["replaces"]) == (
@@ -750,3 +763,4 @@ def test_vis_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
                  "vis: the phase took"):
         assert line in out
     assert "FAIL" not in out
+

@@ -92,8 +92,10 @@ def _without_device(node):
 
 @pytest.mark.parametrize("overrides", [
     [], ["model=sam_pt_reinit"], ["model/point_tracker=cotracker"],
+    ["model/point_tracker=tapir"], ["model/point_tracker=tapnet"],
     ["+a.b=3"], ["model.sam_iou_threshold=0.5"],
-], ids=["plain", "reinit", "cotracker", "new_key", "value"])
+], ids=["plain", "reinit", "cotracker", "tapir", "tapnet", "new_key",
+        "value"])
 def test_compose_equals_the_jax_compose(overrides):
     got = compose(CONFIG_DIR, "vos_eval_root", overrides)
     ref = j_compose(JAX_CONFIGS, "vos_eval_root", overrides)
@@ -118,6 +120,7 @@ def _targets(node, found):
     "model=sam_pt", "model=sam_pt_reinit", "model=sam_pt_tiny_test",
     "model/point_tracker=cotracker", "model/point_tracker=pips",
     "model/point_tracker=pips_plus_plus", "model/point_tracker=raft",
+    "model/point_tracker=tapir", "model/point_tracker=tapnet",
     "model/sam@model.sam_predictor=sam_vit_base",
     "model/sam@model.sam_predictor=sam_vit_large",
     "model/sam@model.sam_predictor=sam_vit_huge",

@@ -43,6 +43,15 @@ SLICE_MODULES = [
     "sam_pt_torch.models.tracker.raft.tracker",
     "sam_pt_torch.models.tracker.cotracker.model",
     "sam_pt_torch.models.tracker.cotracker.tracker",
+    "sam_pt_torch.models.tracker.tapir",
+    "sam_pt_torch.models.tracker.tapir.model",
+    "sam_pt_torch.models.tracker.tapir.tracker",
+    "sam_pt_torch.models.tracker.tapir.demo",
+    "sam_pt_torch.models.tracker.tapnet",
+    "sam_pt_torch.models.tracker.tapnet.model",
+    "sam_pt_torch.models.tracker.tapnet.tracker",
+    "sam_pt_torch.models.tracker.tapnet.demo",
+    "sam_pt_torch.models.tracker.standalone_demo",
     "sam_pt_torch.models.sam_pt",
     "sam_pt_torch.models.sam_pt_interactive",
     "sam_pt_torch.utils.dbscan",
@@ -166,6 +175,35 @@ def test_demo_runs_without_cv2_pillow_or_jax(tmp_path):
     assert written == [f"{t:05d}.png" for t in range(3)]
     assert read_rgb(str(tmp_path / "out" / "frames" / written[0])).shape == (
         48, 64, 3)
+
+
+@pytest.mark.parametrize("name", ["tapir", "tapnet"])
+def test_tracker_demo_runs_without_jax_cv2_or_matplotlib(name, tmp_path):
+    """`python -m sam_pt_torch.models.tracker.<name>.demo` on the CPU over
+    PNG frames, every module of BLOCKED raising ImportError: it times the
+    two forwards and skips the plot."""
+    from sam_pt_torch.vos_eval.data.image_io import write_png
+
+    stubs = _blocking_stubs(tmp_path)
+    rng = np.random.default_rng(3)
+    frames = tmp_path / "frames"
+    os.makedirs(frames)
+    for t in range(3):
+        write_png(str(frames / f"{t:05d}.png"),
+                  rng.integers(0, 255, (30, 40, 3)).astype(np.uint8))
+    points = tmp_path / "points.txt"
+    points.write_text("1\n0 ; 10,10 30,20\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([stubs, ROOT]))
+    proc = subprocess.run(
+        [sys.executable, "-m", f"sam_pt_torch.models.tracker.{name}.demo",
+         "--frames", str(frames), "--query-points", str(points),
+         "--frame-stride", "1", "--out", str(tmp_path / "out"),
+         "--device", "cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "frames/s" in proc.stdout and "plot skipped" in proc.stdout
 
 
 def test_cli_runs_without_jax_yaml_pillow_or_pandas(tmp_path):

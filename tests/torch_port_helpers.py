@@ -1,13 +1,14 @@
 """Shared fixtures for the port's parity tests (`test_torch_*.py`).
 
 Weights start as random state dicts in the public checkpoint namespaces
-(`segment_anything` SAM, CoTracker v1, PIPS, PIPS++, raft-things), made
-with numpy from a seed. The
+(`segment_anything` SAM, CoTracker v1, PIPS, PIPS++, raft-things; TAPIR's
+and TapNet's haiku module names), made with numpy from a seed. The
 JAX side gets them through the JAX package's own converters; the port loads
 them as they are or through `sam_pt_torch.utils.checkpoint`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -226,6 +227,134 @@ def random_hq_state_dict(seed: int = 0, vit_dim: int = 32,
     return {f"mask_decoder.{k}": v for k, v in as_float32(sd).items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_leaves(name: str, kwargs: Tuple = ()):
+    """(module path, leaf name, shape) of the parameters of the JAX package's
+    TAPIR(**kwargs) or TAPNet(), from their init shapes (no weights are
+    computed; kept, since tracing the full-width TAPIR takes seconds)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sam_pt_tpu.models.tracker.tapir.model import TAPIR
+    from sam_pt_tpu.models.tracker.tapnet.model import TAPNet
+
+    model = TAPIR(**dict(kwargs)) if name == "tapir" else TAPNet()
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 256, 256, 3)), jnp.zeros((1, 3)))
+    leaves = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        keys = [k.key for k in path][1:]  # under "params"
+        leaves.append((tuple(keys[:-1]), keys[-1], tuple(leaf.shape)))
+    return tuple(leaves)
+
+
+def _haiku_draw(rng, leaf: str, shape) -> np.ndarray:
+    """Weights N(0, 1/fan_in), norm scales and variances 1 + N(0, 0.1^2),
+    biases, offsets and means N(0, 0.1^2), float32."""
+    if leaf in ("w", "kernel"):
+        arr = rng.standard_normal(shape) * np.prod(shape[:-1]) ** -0.5
+    elif leaf in ("scale", "var"):
+        arr = 1.0 + 0.1 * rng.standard_normal(shape)
+    else:
+        arr = 0.1 * rng.standard_normal(shape)
+    return arr.astype(np.float32)
+
+
+def _tapir_haiku_module(mod) -> str:
+    """The JAX TAPIR's module path -> the haiku module name its converter
+    reads (`sam_pt_tpu/utils/checkpoint.py::_map_tapir_module`)."""
+    import re
+
+    if mod[0] == "resnet":
+        if mod[1] == "initial_conv":
+            return "tapir/~/resnet/~/initial_conv"
+        g, b = re.fullmatch(r"group(\d)_block(\d)", mod[1]).groups()
+        sub = mod[2].replace("norm_", "instancenorm_")
+        return f"tapir/~/resnet/~/block_group_{g}/~/block_{b}/~/{sub}"
+    if mod[0] == "pips_mixer":
+        top = {"input_proj": "linear", "out_proj": "linear_1",
+               "out_norm": "layer_norm"}
+        if mod[1] in top:
+            return f"tapir/~/pips_mlp_mixer/~/{top[mod[1]]}"
+        i = int(mod[1].split("_")[1])
+        sub = {"norm1": "layer_norm", "norm2": "layer_norm_1",
+               "dw1": "mlp1_up", "dw2": "mlp1_up_1", "mlp2_up": "mlp2_up",
+               "mlp2_down": "mlp2_down"}[mod[2]]
+        block = "block" if i == 0 else f"block_{i}"
+        return f"tapir/~/pips_mlp_mixer/~/{block}/~/{sub}"
+    return f"tapir/~/{mod[0]}"
+
+
+def random_tapir_haiku_params(seed: int = 0, pyramid_level: int = 1,
+                              **model_kwargs
+                              ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A TAPIR haiku params dict (module name -> {'w', 'b', 'scale',
+    'offset'}, numpy float32), shaped as the JAX `TAPIR(pyramid_level=...,
+    **model_kwargs)` initialises: at the published widths by default (the
+    mixer's input projection 486 rows wide at level 0, 535 at level 1)."""
+    rng = np.random.default_rng(seed)
+    hk: Dict[str, Dict[str, np.ndarray]] = {}
+    names = {"kernel": "w", "bias": "b", "scale": "scale",
+             "offset": "offset"}
+    kwargs = tuple(sorted(dict(model_kwargs,
+                               pyramid_level=pyramid_level).items()))
+    for mod, leaf, shape in _flax_leaves("tapir", kwargs):
+        hk.setdefault(_tapir_haiku_module(mod), {})[names[leaf]] = (
+            _haiku_draw(rng, leaf, shape))
+    return hk
+
+
+def random_tapnet_haiku_checkpoint(seed: int = 0) -> Dict[str, Dict]:
+    """A TapNet haiku checkpoint {'params', 'state'} (numpy float32) at the
+    published widths, shaped as the JAX `TAPNet` initialises, under the
+    names its converter reads: the cost-volume convs as Conv3D kernels
+    [1, kh, kw, in, out], each BatchNorm's scale and offset [1, 1, 1, C]
+    and its moving averages in the state ('.../batch_norm/~/mean_ema'
+    {'average', 'hidden', 'counter'})."""
+    import re
+
+    rng = np.random.default_rng(seed)
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    state: Dict[str, Dict[str, np.ndarray]] = {}
+    bn_leaves = {"scale": "scale", "bias": "offset"}
+    for mod, leaf, shape in _flax_leaves("tapnet"):
+        arr = _haiku_draw(rng, leaf, shape)
+        if mod[0] != "tsm_resnet":
+            name = f"tap_net/~/{mod[0]}"
+            if leaf == "kernel" and arr.ndim == 4:
+                arr = arr[None]  # a Conv3D over one frame
+            leaf = {"kernel": "w", "bias": "b"}[leaf]
+            params.setdefault(name, {})[leaf] = arr
+            continue
+        if mod[1] == "initial_conv":
+            name = "tap_net/~/tsm_resnet_video/~/tsm_resnet_stem"
+            params.setdefault(name, {})["w"] = arr
+            continue
+        u, b = re.fullmatch(r"unit(\d)_block(\d)", mod[1]).groups()
+        sub = {"bn_pre": "batch_norm", "bn_1": "batch_norm_1"}.get(mod[2],
+                                                                    mod[2])
+        name = (f"tap_net/~/tsm_resnet_video/~/tsm_resnet_unit_{u}/~/"
+                f"block_{b}/~/{sub}")
+        if leaf == "kernel":
+            params.setdefault(name, {})["w"] = arr
+        elif leaf in bn_leaves:
+            params.setdefault(name, {})[bn_leaves[leaf]] = arr.reshape(
+                1, 1, 1, -1)
+        else:  # mean, var: the moving averages
+            state[f"{name}/~/{leaf}_ema"] = {
+                "average": arr.reshape(1, 1, 1, -1),
+                "hidden": arr.reshape(1, 1, 1, -1),
+                "counter": np.asarray(1000, np.int32)}
+    return {"params": params, "state": state}
+
+
+def save_npy(path, tree) -> str:
+    """`tree` as the public checkpoints store it: a pickled dict in an
+    .npy."""
+    np.save(str(path), np.asarray(tree, dtype=object), allow_pickle=True)
+    return str(path)
+
+
 def torch_sd(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v.copy()) for k, v in sd.items()}
 
@@ -250,12 +379,13 @@ TINY_TRACKER = dict(interp_shape=(32, 40), visibility_threshold=0.5,
 
 
 def tiny_sam_pt_pair(tracker: str = "cotracker", hq: bool = False,
-                     **settings) -> Tuple[object, object]:
+                     trackers=None, **settings) -> Tuple[object, object]:
     """(JAX SamPt, port SamPt) on the same random weights, float32: the
     tiny SAM (seed 17; with `hq`, HQ-SAM's decoder, seed 19) and, by
-    `tracker`, the tiny CoTracker (seed 18, most points visible) or PIPS at
-    its published widths (seed 18, stride 4, points visible);
-    TINY_SAM_PT_SETTINGS updated by `settings`."""
+    `tracker`, the tiny CoTracker (seed 18, most points visible), PIPS at
+    its published widths (seed 18, stride 4, points visible), or TAPIR or
+    TapNet at theirs (`haiku_tracker_pair`, seed 18), or the (JAX, port)
+    `trackers` given; TINY_SAM_PT_SETTINGS updated by `settings`."""
     import sam_pt_tpu.utils.testing as jtesting
     from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
     from sam_pt_torch.models.sam.sam_model import Sam as TSam
@@ -271,8 +401,9 @@ def tiny_sam_pt_pair(tracker: str = "cotracker", hq: bool = False,
     if hq:
         sd.update(random_hq_state_dict(seed=19, vit_dim=32))
     sam_params = convert_sam_state_dict(sd)
-    jtracker, ttracker = (tiny_cotracker_pair() if tracker == "cotracker"
-                          else pips_pair())
+    jtracker, ttracker = trackers or {"cotracker": tiny_cotracker_pair,
+                                      "pips": pips_pair}.get(
+        tracker, lambda: haiku_tracker_pair(tracker, seed=18))()
     jpredictor = JPredictor(
         JSam(encoder_variant="vit_tiny_test", image_size=64, use_hq=hq),
         sam_params)
@@ -331,6 +462,37 @@ def pips_pair():
     return JTracker(params=convert_pips_state_dict(sd), stride=4), ttracker
 
 
+def haiku_tracker_pair(name: str, seed: int = 0, **kwargs
+                       ) -> Tuple[object, object]:
+    """(JAX, port) TAPIR or TapNet trackers (`name`) at the published
+    widths on one random haiku checkpoint, written as an .npy and read by
+    each side's own reader; `kwargs` go to both constructors."""
+    import os
+    import tempfile
+
+    if name == "tapir":
+        from sam_pt_torch.models.tracker.tapir.tracker import (
+            TapirPointTracker as TTracker,
+        )
+        from sam_pt_tpu.models.tracker.tapir.tracker import (
+            TapirPointTracker as JTracker,
+        )
+        tree = random_tapir_haiku_params(seed)
+    else:
+        from sam_pt_torch.models.tracker.tapnet.tracker import (
+            TapNetPointTracker as TTracker,
+        )
+        from sam_pt_tpu.models.tracker.tapnet.tracker import (
+            TapNetPointTracker as JTracker,
+        )
+        tree = random_tapnet_haiku_checkpoint(seed)
+    with tempfile.TemporaryDirectory() as folder:
+        path = save_npy(os.path.join(folder, f"{name}.npy"), tree)
+        jtracker = JTracker(checkpoint_path=path, **kwargs)
+        ttracker = TTracker(checkpoint_path=path, device="cpu", **kwargs)
+    return jtracker, ttracker
+
+
 def tiny_interactive_pair(tracker: str = "cotracker", **settings
                           ) -> Tuple[object, object]:
     """(JAX SamPtInteractive, port SamPtInteractive) on the weights of
@@ -363,3 +525,96 @@ def smooth_video(t: int = 6, h: int = 48, w: int = 64,
     frames = [np.roll(base, 2 * i, axis=1) + rng.normal(0, 4, (h, w, 3))
               for i in range(t)]
     return np.clip(np.stack(frames), 0, 255).astype(np.uint8)
+
+
+# Assertions shared by the TAPIR and TapNet parity tests: the SamPt pair's
+# tolerances are test_torch_default_model.py's; no score the tests compare
+# with a threshold may lie within MARGIN of it.
+MARGIN = 1e-3
+LOGIT_ATOL = 2e-2
+
+
+def tree_equal(a, b):
+    """Two nested dicts of arrays are equal, key for key."""
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            tree_equal(a[k], b[k])
+        else:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def flax_params(module, rng, *shapes):
+    """A flax module's initial parameters for inputs of `shapes`, each
+    moved by N(0, 0.1^2) (so that norm scales and biases are not 1 and
+    0), as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    params = module.init(jax.random.PRNGKey(0),
+                         *(jnp.zeros(s) for s in shapes))
+    return jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + 0.1 * rng.standard_normal(p.shape).astype(
+            np.float32), params)
+
+
+def assert_argmax_margins(got, ref):
+    """The two largest logits of each heatmap lie further apart than the
+    two sides' logits differ, so the argmax is the same on both."""
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    diff = np.abs(got - ref).max(-1)
+    assert np.all(top2[..., 1] - top2[..., 0] > 2 * diff), (
+        (top2[..., 1] - top2[..., 0]).min(), diff.max())
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def assert_visibility_margins(scores, threshold):
+    assert np.abs(scores - threshold).min() > MARGIN
+
+
+def sam_pt_video():
+    """4 frames of 48 x 64, query masks of two objects on frames 0 and 3
+    (with 4 points a mask, the trackers' T = 4 and N = 8 are the other
+    TAPIR / TapNet tests' shapes)."""
+    rng = np.random.default_rng(16)
+    t, h, w = 4, 48, 64
+    masks = np.zeros((2, h, w), np.float32)
+    masks[0, 10:25, 8:30] = 1
+    masks[1, 28:45, 35:60] = 1
+    return {"image": rng.integers(0, 255, (t, h, w, 3)).astype(np.uint8),
+            "target_hw": (96, 128), "query_masks": masks,
+            "query_point_timestep": np.array([0, 3], np.float32)}
+
+
+def assert_sam_pt_pair(video, jout, tout):
+    """The SamPt pair's outputs, as test_torch_default_model.py holds
+    them: trajectories 1e-3 px, equal visibilities, IoU scores 1e-4,
+    float16 logits LOGIT_ATOL, fused labels equal away from the decision
+    boundaries."""
+    from sam_pt_torch.vos_eval.eval import device_fuse_index_masks as t_fuse
+    from sam_pt_tpu.vos_eval.eval import device_fuse_index_masks as j_fuse
+
+    assert tout["trajectories"].shape == np.asarray(
+        jout["trajectories"]).shape
+    np.testing.assert_allclose(tout["trajectories"].numpy(),
+                               np.asarray(jout["trajectories"]), atol=1e-3,
+                               rtol=0)
+    np.testing.assert_array_equal(tout["visibilities"].numpy(),
+                                  np.asarray(jout["visibilities"]))
+    for key in ("scores_per_frame", "scores"):
+        np.testing.assert_allclose(tout[key].numpy(), np.asarray(jout[key]),
+                                   atol=1e-4, rtol=0)
+    got = tout["logits"].float().numpy()
+    ref = np.asarray(jout["logits"], np.float32)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
+    finite = np.isfinite(ref)
+    assert finite.any()
+    np.testing.assert_allclose(got[finite], ref[finite], atol=LOGIT_ATOL,
+                               rtol=1e-3)
+    ts = [int(x) for x in video["query_point_timestep"]]
+    gt = video["query_masks"].repeat(2, axis=1).repeat(2, axis=2)
+    top2 = np.sort(np.maximum(ref, -1e4), axis=0)[-2:]
+    near = (np.abs(ref) < LOGIT_ATOL).any(0) | (
+        top2[1] - top2[0] < LOGIT_ATOL)
+    assert np.array_equal(t_fuse(tout["logits"], gt, ts)[~near],
+                          j_fuse(jout["logits"], gt, ts)[~near])

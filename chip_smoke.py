@@ -148,9 +148,28 @@ Phases, in order; any failure exits non-zero before the verdict line:
      (masks equal to the direct forward's, the `python -m` entry point),
      and both standalone tracker demos as subprocesses over phase 17's
      PNG frames (exit 0, their frames/s).
+ 20. SuperGlue phase: `build_sam_pt(sam="vit_b", tracker="superglue",
+     **DEFAULT_SETTINGS)` (SAM bf16, SuperGlue f32 at its published
+     widths: 1024 keypoints, 9 pairs x 4 heads, 100 Sinkhorn iterations,
+     threshold 0.2) on random weights made live
+     (`superglue_live_weights`) over a 24-frame x 2-object 480 x 854
+     textured video whose texture moves: launches equal to the schedule,
+     output checks, the matches a frame and each mask's visible positives
+     (a mask fails with none on more than half of frames 1-23), a timed
+     second pass, phase 5's check at ViT-B; one re-initialising pass
+     (`REINIT_SETTINGS`, query frames 0 and 12: each window's masks set on
+     the tracker, launches with their decodes); the tracker alone over 24
+     x 480 x 854 (timed, SuperPoint, SuperGlue and the Sinkhorn's
+     synchronised seconds) and on 8 x 96 x 160 the card against the CPU
+     (TF32 off: keypoints, log transport plans, matches, trajectories);
+     label propagation card against CPU; the phase's seconds. Then phase
+     11's CLI run with `model/point_tracker=superglue` on one video (its
+     random weights are not live: it shows the entry point runs) and
+     `python -m sam_pt_torch.models.tracker.superglue.match_pairs` on two
+     of phase 17's PNG frames (exit 0, the matches file's keys).
 Then the script's seconds, one JSON line with the per-kernel numbers
 (rows of K1-K4 at the main path's shapes, K1/K2 at ViT-B's with the
-default model's launches and phase 19's,
+default model's launches and phases 19's and 20's,
 `global_attention_crop` at phase 13's grid, `image_to_token_interactive`
 at phase 14's 325 token keys, `cross_attention_hq` at phase 15's pairs
 and tokens, `cross_attention_amg` at phase 18's generator batch,
@@ -763,12 +782,13 @@ def bias_for_a_live_run(sam_pt) -> None:
     the decoder's visible-point paths and every plane would be gated.
     Two output biases are set so that both paths are live: the tracker's
     visibility (PIPS's visibility head; TAPIR's and TapNet's occlusion
-    logits, at -3) and SAM's IoU head."""
+    logits, at -3; SuperGlue has none: `superglue_live_weights`) and SAM's
+    IoU head."""
     with torch.no_grad():
-        model = sam_pt.point_tracker.model
+        model = getattr(sam_pt.point_tracker, "model", None)
         if hasattr(model, "occlusion_out"):  # TAPIR, TapNet
             model.occlusion_out.bias.fill_(-3.0)
-        else:
+        elif model is not None:  # SuperGlue has no visibility head
             model.vis_predictor[0].bias.fill_(3.0)
         sam_pt.sam_predictor.model.mask_decoder.iou_prediction_head.layers[
             -1].bias.fill_(1.0)
@@ -1460,7 +1480,10 @@ def cli_phase(fa, card: str, model=CLI_MODEL, videos=None,
         if sam_pt.device.type != cfg["device"]:
             raise SystemExit(f"{label}: the model is not on {cfg['device']}")
         cfg["model"] = sam_pt
-        rng_state = sam_pt.rng.bit_generator.state
+        # SamPt's rng, and SuperGlue's (its quota sampling draws from it)
+        rngs = [r for r in (sam_pt.rng, getattr(sam_pt.point_tracker, "rng",
+                                                None)) if r is not None]
+        rng_states = [r.bit_generator.state for r in rngs]
 
         fa.reset_launch_counts()
         results = evaluate(cfg)
@@ -1487,7 +1510,8 @@ def cli_phase(fa, card: str, model=CLI_MODEL, videos=None,
         if not ok:
             raise SystemExit(f"{label}: the run's outputs are wrong")
 
-        sam_pt.rng.bit_generator.state = rng_state
+        for r, state in zip(rngs, rng_states):
+            r.bit_generator.state = state
         for v in range(len(names)):
             name, masks = direct_masks(sam_pt, cfg, v)
             labels = set()
@@ -1539,18 +1563,20 @@ def cli_phase(fa, card: str, model=CLI_MODEL, videos=None,
         shutil.rmtree(root, ignore_errors=True)
 
 
-def textured_frames(n_frames: int, seed: int) -> np.ndarray:
-    """[T, H, W, 3] uint8: 8 x 8 blocks of random colour, still for the
-    first half of the video and then moving right 2 pixels a frame, plus
-    noise of +-8: a point's patches stay similar while the texture is
-    still and, unless the point follows it, stop being similar after."""
+def textured_frames(n_frames: int, seed: int, h=None, w=None) -> np.ndarray:
+    """[T, h, w, 3] uint8 (H x W by default): 8 x 8 blocks of random
+    colour, still for the first half of the video and then moving right 2
+    pixels a frame, plus noise of +-8: a point's patches stay similar while
+    the texture is still and, unless the point follows it, stop being
+    similar after."""
+    h, w = h or H, w or W
     rng = np.random.default_rng(seed)
-    texture = rng.integers(0, 255, (H // 8 + 1, W // 8 + 1, 3))
-    texture = texture.repeat(8, 0).repeat(8, 1)[:H, :W]
+    texture = rng.integers(0, 255, (h // 8 + 1, w // 8 + 1, 3))
+    texture = texture.repeat(8, 0).repeat(8, 1)[:h, :w]
     still = n_frames // 2
     return np.stack([
         np.clip(np.roll(texture, 2 * max(0, t - still + 1), axis=1)
-                + rng.integers(-8, 8, (H, W, 3)), 0, 255)
+                + rng.integers(-8, 8, (h, w, 3)), 0, 255)
         for t in range(n_frames)]).astype(np.uint8)
 
 
@@ -2913,6 +2939,459 @@ def tracker_demo_phase(card: str, args=()) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 20: SamPt with SAM ViT-B and SuperGlue over 24 x 2, the tracker's
+# live weights (`superglue_live_weights`) and the checks' bounds.
+SUPERGLUE_VIDEO = (24, 2)
+SUPERGLUE_PROJ_SCALE = 64.0
+# A mask fails where it has no visible positive on more than this share of
+# frames 1-23.
+SUPERGLUE_EMPTY_SHARE = 0.5
+# The card's log transport plan against the CPU's (float32, TF32 off), over
+# the valid rows and columns and the dustbins: |diff| <= ATOL + RTOL |cpu|
+# (entries reach ~1e3 with the live weights; 100 Sinkhorn iterations).
+SUPERGLUE_PLAN_ATOL, SUPERGLUE_PLAN_RTOL = 1e-2, 1e-4
+SUPERGLUE_CLI_MODEL = ("model/point_tracker=superglue", *CLI_MODEL)
+
+
+def build_superglue_sam_pt(device):
+    """`build_sam_pt(device, sam="vit_b", tracker="superglue",
+    **DEFAULT_SETTINGS)`, SAM in bf16, SuperGlue in f32 at its published
+    widths (1024 keypoints, 9 pairs x 4 heads, 100 Sinkhorn iterations,
+    threshold 0.2)."""
+    from sam_pt_torch.build import DEFAULT_SETTINGS, build_sam_pt
+
+    return build_sam_pt(device, dtype=torch.bfloat16, seed=0, sam="vit_b",
+                        tracker="superglue", **DEFAULT_SETTINGS)
+
+
+def superglue_live_weights(tracker, scale: float = SUPERGLUE_PROJ_SCALE
+                           ) -> None:
+    """Random N(0, 0.02^2) weights give SuperPoint descriptors that are
+    nearly constant over a frame (the biases outweigh the shrinking
+    activations) and SuperGlue a near-uniform transport plan, which no
+    match passes at 0.2. Live instead: SuperPoint's conv weights, the same
+    draws, each filter made zero-mean (so that it answers the texture's
+    contrast, not its brightness: otherwise any two descriptors of a frame
+    have a cosine near 0.99) and rescaled to N(0, 2/fan_in), zero biases;
+    SuperGlue's propagations' last convs and the keypoint encoder's output
+    conv zero, so that the descriptors pass through the network as they
+    are; `final_proj` `scale` times the identity, so that the scores are
+    scale^2/16 times the descriptors' cosine; the dustbin score 1."""
+    with torch.no_grad():
+        for m in tracker.superpoint.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.sub_(m.weight.mean(dim=(1, 2, 3), keepdim=True))
+                m.weight.mul_((2.0 / m.weight[0].numel()) ** 0.5
+                              / m.weight.std())
+                m.bias.zero_()
+        sg = tracker.superglue
+        for conv in [layer.mlp[-1] for layer in sg.gnn.layers] + [
+                sg.kenc.encoder[-1]]:
+            conv.weight.zero_()
+            conv.bias.zero_()
+        eye = torch.eye(sg.descriptor_dim, device=sg.bin_score.device)
+        sg.final_proj.weight.copy_(scale * eye[:, :, None])
+        sg.final_proj.bias.zero_()
+        sg.bin_score.fill_(1.0)
+
+
+def superglue_reinit_schedule(sam_pt, frames: int, windows) -> dict:
+    """Launches of a re-initialising forward with SuperGlue: one encode
+    of the video; per horizon window (direction, start, end, masks) the
+    decode of its tracked pairs and, before its track, the decode of its
+    query masks from its points (one pair a mask: `set_masks`)."""
+    return launch_schedule(sam_pt, [frames],
+                           [(b - a) * k for _, a, b, k in windows]
+                           + [k for *_, k in windows])
+
+
+def superglue_matches(tracker, images) -> np.ndarray:
+    """Matches of frame 0 against each later frame of [T, H, W, 3] uint8
+    `images` on the tracker's device: [T - 1] counts."""
+    from sam_pt_torch.ops.color import rgb_to_gray
+
+    det = tracker.detect(rgb_to_gray(images) / 255.0)
+    matches = tracker.match({k: v[:1] for k, v in det.items()},
+                            {k: v[1:] for k, v in det.items()},
+                            tuple(images.shape[1:3]))
+    return (matches > -1).sum(1).cpu().numpy()
+
+
+def visible_positives(out, n_pos: int) -> np.ndarray:
+    """[T, M] counts of each mask's visible positive points a frame."""
+    return (out["visibilities"][:, :, :n_pos] == 1).sum(-1).cpu().numpy()
+
+
+def superglue_video(n_frames: int, n_masks: int, seed: int) -> dict:
+    """`make_video`'s boxes on frame 0 over `textured_frames`, whose
+    texture moves in the second half."""
+    video = make_video(1, n_masks, seed)
+    video["image"] = textured_frames(n_frames, seed)
+    return video
+
+
+def superglue_phase(fa, device, fuse, card: str, profiling: bool,
+                    build=build_superglue_sam_pt) -> dict:
+    """Phase 20: SamPt with SAM ViT-B (bf16) and SuperGlue (f32, live
+    weights) over a textured 24 x 2 video (launches, output checks, the
+    matches a frame and each mask's visible positives, a timed second pass,
+    the reference check at ViT-B); one re-initialising pass (the reinit
+    `set_masks` branch); the tracker alone and against the CPU
+    (`superglue_tracker_checks`); a short card check of label propagation.
+    Returns the first run's launches."""
+    from sam_pt_torch.build import REINIT_SETTINGS
+
+    t_phase = time.perf_counter()
+    t, m = SUPERGLUE_VIDEO
+    t0 = time.perf_counter()
+    sam_pt = build(device)
+    bias_for_a_live_run(sam_pt)
+    superglue_live_weights(sam_pt.point_tracker)
+    torch.cuda.synchronize()
+    n_pos = sam_pt.positive_points_per_mask
+    n_points = n_pos + sam_pt.negative_points_per_mask
+    log(f"superglue: built SamPt (SAM {sam_pt.sam_predictor.model.dtype}, "
+        f"{type(sam_pt.point_tracker).__name__} float32, live random "
+        f"weights) in {time.perf_counter() - t0:.1f} s")
+    video = superglue_video(t, m, seed=14)
+    fa.reset_launch_counts()
+    out, masks = run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    found = dict(fa.LAUNCHES)
+    expected = launch_schedule(sam_pt, [t], [t * m])
+    log(f"superglue: launches {found} expected {expected}")
+    if found != expected:
+        raise SystemExit("superglue: launch counts differ")
+    log(f"superglue: video {t} frames x {m} objects: "
+        + check_outputs(out, masks, t, m, n_points))
+    images = torch.from_numpy(video["image"]).to(device)
+    counts = superglue_matches(sam_pt.point_tracker, images)
+    positives = visible_positives(out, n_pos)
+    empty = (positives[1:] == 0).mean(0)
+    ok = bool((empty <= SUPERGLUE_EMPTY_SHARE).all())
+    log(f"superglue: matches a frame (1-{t - 1}) {counts.tolist()}; visible "
+        f"positives a frame, per mask: "
+        + "; ".join(f"mask {i}: {positives[1:, i].tolist()}"
+                    for i in range(m))
+        + f"; share of frames without one {np.round(empty, 3).tolist()} "
+        f"(<= {SUPERGLUE_EMPTY_SHARE}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("superglue: a mask has no visible positive on most "
+                         "frames")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_video(sam_pt, video, fuse)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"superglue: timed pass {wall:.3f} s for {t} frames = "
+        f"{t / wall:.3f} frames/s on {card}")
+    reference_phase(sam_pt, fa, video, label="superglue reference")
+    if profiling:
+        stage_split(sam_pt, f"superglue_{t}x{m}", (
+            "_encode_all_frames", "extract_query_points",
+            "_track_points_device", "_apply_sam_device"),
+            lambda: run_video(sam_pt, video, fuse), card)
+
+    # The reinit path on the same model: query masks on frames 0 and 12,
+    # so that the flipped pass runs; each window sets its masks.
+    settings = {k: getattr(sam_pt, k) for k in REINIT_SETTINGS}
+    for k, v in REINIT_SETTINGS.items():
+        setattr(sam_pt, k, v)
+    tracker = sam_pt.point_tracker
+    set_masks = tracker.set_masks
+    mask_sets = []
+    tracker.set_masks = lambda masks: (mask_sets.append(masks.shape),
+                                       set_masks(masks))
+    try:
+        query_ts = [0, t // 2]
+        reinit_video = superglue_video(t, m, seed=15)
+        reinit_video["query_point_timestep"] = np.asarray(query_ts,
+                                                          np.float32)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, masks = run_video(sam_pt, reinit_video, fuse)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        windows = list(sam_pt.reinit_windows)
+        expected = superglue_reinit_schedule(sam_pt, t, windows)
+        log(f"superglue reinit: windows {windows}, set_masks of "
+            f"{mask_sets}; launches {launches} expected {expected}; "
+            f"{wall:.3f} s")
+        if launches != expected or len(mask_sets) != 1 + len(windows):
+            raise SystemExit("superglue reinit: launches or mask sets "
+                             "differ")
+        log("superglue reinit: " + check_outputs(out, masks, t, m, n_points,
+                                                 query_ts))
+    finally:
+        del tracker.set_masks
+        for k, v in settings.items():
+            setattr(sam_pt, k, v)
+    del sam_pt, tracker
+    torch.cuda.empty_cache()
+    superglue_tracker_checks(device, card, profiling=profiling)
+    label_propagation_check(device)
+    log(f"superglue: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return found
+
+
+def superglue_tracker_checks(device, card: str, frames: int = 24,
+                             keypoints: int = 1024,
+                             small_keypoints: int = 1024,
+                             profiling: bool = False) -> None:
+    """SuperGlue alone (live weights, the YAML's settings, `keypoints`
+    slots): 17 points of one mask through a `frames` x 480 x 854 textured
+    video, timed, with the stages' synchronised wall times (SuperPoint on
+    the frames, SuperGlue on the pairs, and the Sinkhorn alone on the
+    pairs' score shape); then on an 8-frame 96 x 160 video the card
+    against the CPU on the same weights, TF32 off, with `small_keypoints`
+    slots: SuperPoint's valid keypoints equal as sets, their scores within
+    1e-5 and descriptors within 1e-4; SuperGlue on the card's detections on
+    both sides, the log transport plans within SUPERGLUE_PLAN_ATOL +
+    SUPERGLUE_PLAN_RTOL |cpu| and the matches equal wherever the mutual-max
+    margin exceeds the sides' difference; the trajectories equal with the
+    rngs reset. With `profiling`, one pass of the first under
+    torch.profiler."""
+    from sam_pt_torch.build import TRACKER_SETTINGS
+    from sam_pt_torch.models.tracker import TRACKER_REGISTRY
+    from sam_pt_torch.models.tracker.superglue.superglue import log_sinkhorn
+    from sam_pt_torch.models.tracker.superglue.tracker import match_data
+    from sam_pt_torch.ops.color import rgb_to_gray
+
+    def build(dev, slots):
+        settings = dict(TRACKER_SETTINGS["superglue"], max_keypoints=slots)
+        tracker = TRACKER_REGISTRY["superglue"](
+            allow_random_init=True, seed=1, device=dev,
+            positive_points_per_mask=16, negative_points_per_mask=1,
+            **settings)
+        superglue_live_weights(tracker)
+        return tracker
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tracker = build(device, keypoints)
+    video = superglue_video(frames, 1, seed=16)
+    rgbs = torch.from_numpy(video["image"]).to(device)[None]
+    box = np.argwhere(video["query_masks"][0])  # the query points inside
+    qp = np.concatenate([np.zeros((17, 1)), np.random.default_rng(17).uniform(
+        box.min(0)[::-1], box.max(0)[::-1], (17, 2))], 1)[None].astype(
+        np.float32)
+    for timed in (False, True):
+        tracker.set_masks(video["query_masks"])
+        (traj, vis), wall = synced(lambda: tracker.forward_device(rgbs, qp))
+    gray = rgb_to_gray(rgbs[0]) / 255.0
+    det, detect_s = synced(lambda: tracker.detect(gray))
+    first = {k: v[:1] for k, v in det.items()}
+    rest = {k: v[1:] for k, v in det.items()}
+    _, match_s = synced(lambda: tracker.match(first, rest, (H, W)))
+    k = tracker.superpoint.max_keypoints
+    scores = torch.randn(frames - 1, k, k, device=device)
+    _, sinkhorn_s = synced(lambda: log_sinkhorn(
+        scores, tracker.superglue.bin_score,
+        tracker.superglue.sinkhorn_iterations))
+    ok = (tuple(traj.shape) == (1, frames, 17, 2)
+          and bool(torch.isfinite(traj).all()))
+    log(f"tracker superglue: {frames} frames {H} x {W}, 17 points: timed "
+        f"pass {wall:.3f} s = {frames / wall:.3f} frames/s on {card}; "
+        f"SuperPoint {detect_s:.4f} s, SuperGlue {match_s:.4f} s over "
+        f"{frames - 1} pairs, of which the Sinkhorn "
+        f"({tracker.superglue.sinkhorn_iterations} iterations) "
+        f"{sinkhorn_s:.4f} s = {sinkhorn_s / (detect_s + match_s):.3f} of "
+        f"the two; visible {float(vis[0, 1:].mean()):.3f} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("tracker superglue: bad trajectories")
+    if profiling:
+        def forward():
+            tracker.set_masks(video["query_masks"])
+            tracker.forward_device(rgbs, qp)
+        device_profile(f"superglue_tracker_{frames}", forward, card)
+    del tracker, rgbs
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(18)
+    small = textured_frames(8, 18, 96, 160)
+    masks = np.zeros((1, 96, 160), np.float32)
+    masks[0, 20:70, 30:110] = 1
+    qp = np.concatenate([np.zeros((17, 1)), rng.uniform(
+        [30, 20], [110, 70], (17, 2))], 1)[None].astype(np.float32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            tracker = build(dev, small_keypoints)
+            if runs:  # the card's weights, on the CPU
+                tracker.superpoint.load_state_dict(weights[0])
+                tracker.superglue.load_state_dict(weights[1])
+            else:
+                weights = [{k: v.cpu() for k, v in mod.state_dict().items()}
+                           for mod in (tracker.superpoint,
+                                       tracker.superglue)]
+            images = torch.from_numpy(small).to(dev)
+            det = tracker.detect(rgb_to_gray(images) / 255.0)
+            # The matcher on the card's detections on both sides.
+            on = {k: v.to(dev) for k, v in (runs[0]["det"] if runs
+                                            else det).items()}
+            with torch.no_grad():
+                pred = tracker.superglue(match_data(
+                    {k: v[:1].expand(7, *v.shape[1:]) for k, v in
+                     on.items()}, {k: v[1:] for k, v in on.items()},
+                    (96, 160)))
+            tracker.set_masks(masks)
+            traj, vis = tracker.forward_device(images[None], qp)
+            runs.append({"det": {k: v.cpu() for k, v in det.items()},
+                         "plan": pred["log_transport"].cpu(),
+                         "matches": pred["matches0"].cpu(),
+                         "traj": traj.cpu(), "vis": vis.cpu()})
+        card_run, cpu_run = runs
+        kp = keypoint_agreement(card_run["det"], cpu_run["det"])
+        plan_err, margin_ok, n_matches = 0.0, True, 0
+        for i in range(7):
+            v0 = card_run["det"]["valid"][0]
+            v1 = card_run["det"]["valid"][i + 1]
+            rows = torch.cat([v0, torch.tensor([True])])
+            cols = torch.cat([v1, torch.tensor([True])])
+            a = card_run["plan"][i][rows][:, cols]
+            b = cpu_run["plan"][i][rows][:, cols]
+            excess = ((a - b).abs() - SUPERGLUE_PLAN_RTOL * b.abs()).max()
+            plan_err = max(plan_err, float((a - b).abs().max()))
+            if excess > SUPERGLUE_PLAN_ATOL:
+                margin_ok = False
+            inner = b[:-1, :-1]
+            diff = float((a - b)[:-1, :-1].abs().max())
+            gaps = [(top[..., 1] - top[..., 0]).min() for top in (
+                inner.topk(2, dim=1).values.flip(-1),
+                inner.topk(2, dim=0).values.T.flip(-1))]
+            if min(float(g) for g in gaps) > 2 * diff and not torch.equal(
+                    card_run["matches"][i], cpu_run["matches"][i]):
+                margin_ok = False
+            n_matches += int((cpu_run["matches"][i] > -1).sum())
+        same_traj = (torch.equal(card_run["traj"], cpu_run["traj"])
+                     and torch.equal(card_run["vis"], cpu_run["vis"]))
+        ok = (kp["differ"] == 0 and kp["score"] <= 1e-5
+              and kp["descriptor"] <= 1e-4 and margin_ok and same_traj
+              and n_matches > 0)
+        log(f"tracker superglue card vs CPU (8 x 96 x 160, {small_keypoints} "
+            f"slots, f32, TF32 off): SuperPoint {kp['differ']} of "
+            f"{kp['total']} valid keypoints differ (0), scores max |diff| "
+            f"{kp['score']:.3e} (<= 1e-5), descriptors {kp['descriptor']:.3e} "
+            f"(<= 1e-4); SuperGlue on the card's detections: log plan max "
+            f"|diff| {plan_err:.3e} (<= {SUPERGLUE_PLAN_ATOL:g} + "
+            f"{SUPERGLUE_PLAN_RTOL:g} |cpu|), matches equal where the "
+            f"margins allow {margin_ok} ({n_matches} matches over 7 pairs); "
+            f"trajectories equal with the rngs reset {same_traj} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("tracker superglue: the card disagrees with the "
+                             "CPU")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def keypoint_agreement(det_a, det_b) -> dict:
+    """Two SuperPoint outputs of the same frames: how many valid keypoints
+    one has and the other lacks (`differ`, of `total`), and at the common
+    ones the largest score and descriptor differences."""
+    differ = total = 0
+    score = descriptor = 0.0
+    for f in range(det_a["keypoints"].shape[0]):
+        found = []
+        for det in (det_a, det_b):
+            valid = det["valid"][f]
+            keys = [tuple(p) for p in det["keypoints"][f][valid].int().tolist()]
+            found.append(dict(zip(keys, torch.nonzero(valid)[:, 0].tolist())))
+        common = found[0].keys() & found[1].keys()
+        differ += len(found[0].keys() ^ found[1].keys())
+        total += len(found[0])
+        ia = [found[0][k] for k in common]
+        ib = [found[1][k] for k in common]
+        if common:
+            score = max(score, float((det_a["scores"][f][ia]
+                                      - det_b["scores"][f][ib]).abs().max()))
+            descriptor = max(descriptor, float(
+                (det_a["descriptors"][f][ia]
+                 - det_b["descriptors"][f][ib]).abs().max()))
+    return {"differ": differ, "total": total, "score": score,
+            "descriptor": descriptor}
+
+
+def label_propagation_check(device) -> None:
+    """Label propagation on the card against the CPU: 24 x 24 feature
+    nodes of 64 dims, 3 context frames of 4 labels, a 12-node window,
+    within 1e-4 + 1e-4 |cpu|."""
+    from sam_pt_torch.ops.label_propagation import label_propagation
+
+    rng = np.random.default_rng(19)
+    h = w = 24
+    tar = rng.standard_normal((h * w, 64)).astype(np.float32)
+    feats = [rng.standard_normal((64, h * w)).astype(np.float32)
+             for _ in range(3)]
+    segs = [rng.uniform(size=(1, 4, h, w)).astype(np.float32)
+            for _ in range(3)]
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        out, _ = label_propagation(
+            h, w, torch.from_numpy(tar).to(dev),
+            [torch.from_numpy(f).to(dev) for f in feats],
+            [torch.from_numpy(s).to(dev) for s in segs])
+        outs.append(out.cpu())
+    err = float(((outs[0] - outs[1]).abs() - 1e-4 * outs[1].abs()).max())
+    ok = bool(torch.isfinite(outs[0]).all()) and err <= 1e-4
+    log(f"label propagation card vs CPU (24 x 24 nodes, 64 dims, 3 context "
+        f"frames): max |diff| - 1e-4 |cpu| {err:.3e} (<= 1e-4) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("label propagation: the card disagrees with the CPU")
+
+
+def match_pairs_phase(card: str, args=("--device", "cuda")) -> None:
+    """`python -m sam_pt_torch.models.tracker.superglue.match_pairs` as a
+    subprocess on two of the demo phase's PNG frames (random weights,
+    without --eval or --viz): exit 0 and the matches file's keys."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.realpath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="match_pairs_",
+                            dir=os.path.join(here, "build"))
+    try:
+        folder, _ = write_demo_inputs(root, frames=2)
+        pairs = os.path.join(root, "pairs.txt")
+        with open(pairs, "w") as f:
+            f.write("00000.png 00001.png\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "sam_pt_torch.models.tracker.superglue.match_pairs",
+             "--input_pairs", pairs, "--input_dir", folder, "--output_dir",
+             os.path.join(root, "out"), "--allow_random_init", *args],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        path = os.path.join(root, "out", "00000_00001_matches.npz")
+        keys = set(np.load(path)) if os.path.exists(path) else set()
+        ok = proc.returncode == 0 and keys == {
+            "keypoints0", "keypoints1", "matches", "match_confidence"}
+        log(f"match_pairs: python -m ...superglue.match_pairs exit "
+            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+            f"{proc.stdout.strip().splitlines()[-1:]}, keys {sorted(keys)} "
+            f"on {card} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+            raise SystemExit("match_pairs: the entry point failed")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # JSON row -> (source, the TPU function it replaces)
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
@@ -2938,7 +3417,8 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
     ViT-B's shapes (`_vit_b`) with the default model's launches (and, as
-    `launches_tapir` and `launches_tapnet`, phase 19's); then K2
+    `launches_tapir` and `launches_tapnet`, phase 19's, and as
+    `launches_superglue` phase 20's); then K2
     on the cropped grid with the crop phase's launches and K3
     image->token at the interactive capacity with the interactive run's
     image->token launches (2 of the 5 K3 calls of a decoder pass); then
@@ -3214,6 +3694,17 @@ def main() -> int:
     cli_phase(fa, card, model=TAPIR_CLI_MODEL, videos=1, label="cli tapir")
     tracker_demo_phase(card)
     log(f"cli tapir and tracker demos: {time.perf_counter() - t0:.1f} s")
+    haiku_launches["superglue"] = superglue_phase(
+        fa, device, device_fuse_index_masks, card, profiling)
+    t0 = time.perf_counter()
+    log("cli superglue: the CLI's random SuperGlue weights are not live "
+        "(no match passes the threshold, so every point after frame 0 is "
+        "invisible): this run shows only that the entry point composes "
+        "and runs")
+    cli_phase(fa, card, model=SUPERGLUE_CLI_MODEL, videos=1,
+              label="cli superglue")
+    match_pairs_phase(card)
+    log(f"cli superglue and match_pairs: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
         f"to the verdict")

@@ -9,8 +9,9 @@ configuration. `sam=` picks the SAM encoder (`vit_b`, `vit_l`, `vit_h`, or
 `vit_t`, MobileSAM's TinyViT), `hq=True` HQ-SAM's decoder (HQ-SAM ViT-H is
 `sam="vit_h", hq=True`, Light HQ-SAM `sam="vit_t", hq=True`), and
 `tracker=` the point tracker (`cotracker`, `pips`, `pips_plus_plus`,
-`raft`, `tapir`, `tapnet`, each as its `configs/model/point_tracker/*.yaml`
-sets it). The
+`raft`, `superglue`, `tapir`, `tapnet`, each as its
+`configs/model/point_tracker/*.yaml` sets it; SuperGlue's quotas are
+SamPt's points per mask). The
 repo's default model, `configs/model/sam_pt.yaml`, is
 `build_sam_pt(device, sam="vit_b", tracker="pips", **DEFAULT_SETTINGS)`;
 with `**REINIT_SETTINGS` it builds the point re-initialisation
@@ -20,8 +21,9 @@ for long videos).
 Weights are random: SAM's (and CoTracker's, after SAM's) are drawn from one
 generator on the device seeded with `seed`, every parameter and buffer
 ~ N(0, 0.02^2) in the working dtype (TinyViT's BatchNorm statistics then
-reset to mean 0, variance 1); PIPS, PIPS++, RAFT, TAPIR and TapNet are
-built in float32 by their own constructors, seeded with `seed + 1`.
+reset to mean 0, variance 1); PIPS, PIPS++, RAFT, SuperGlue, TAPIR and
+TapNet are built in float32 by their own constructors, seeded with
+`seed + 1`.
 """
 from __future__ import annotations
 
@@ -65,6 +67,8 @@ TRACKER_SETTINGS = {
     "pips_plus_plus": dict(stride=8, max_sequence_length=128, iters=16,
                            image_size=(512, 896)),
     "raft": dict(iters=32),
+    "superglue": dict(max_keypoints=1024, sinkhorn_iterations=100,
+                      match_threshold=0.2),
     "tapir": dict(visibility_threshold=0.1, query_chunk_size=64),
     "tapnet": dict(visibility_threshold=0.5, query_chunk_size=16),
 }
@@ -79,6 +83,7 @@ def build_sam_pt(device: Union[str, torch.device],
     `settings` override SAM_PT_SETTINGS (DEFAULT_SETTINGS for the repo's
     default model, REINIT_SETTINGS for the reinit configuration)."""
     device = torch.device(device)
+    settings = dict(SAM_PT_SETTINGS, **settings)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 
@@ -92,9 +97,12 @@ def build_sam_pt(device: Union[str, torch.device],
             support_grid_every_n_frames=12, iters=6,
             model=model.to(dtype).eval().requires_grad_(False))
     else:
+        quotas = {}
+        if tracker == "superglue":  # the YAML interpolates SamPt's
+            quotas = {k: settings[k] for k in ("positive_points_per_mask",
+                                               "negative_points_per_mask")}
         point_tracker = TRACKER_REGISTRY[tracker](
             allow_random_init=True, seed=seed + 1, device=device,
-            **TRACKER_SETTINGS[tracker])
+            **TRACKER_SETTINGS[tracker], **quotas)
     return SamPt(point_tracker=point_tracker,
-                 sam_predictor=SamPredictor(sam_model),
-                 **dict(SAM_PT_SETTINGS, **settings))
+                 sam_predictor=SamPredictor(sam_model), **settings)

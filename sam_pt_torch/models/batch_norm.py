@@ -1,5 +1,6 @@
 """BatchNorm at inference, shared by the models that carry it (RAFT's
-encoders, TinyViT's `Conv2d_BN`), and the reset that random builds need."""
+encoders, TinyViT's `Conv2d_BN`, SuperGlue's MLPs), and the reset that random
+builds need."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +8,8 @@ from torch import nn
 
 
 class InferenceBatchNorm(nn.Module):
-    """BatchNorm2d at inference: (x - mean) * rsqrt(var + 1e-5) * weight +
+    """BatchNorm at inference over dim 1 of [B, C, ...] (BatchNorm1d's and
+    BatchNorm2d's layouts): (x - mean) * rsqrt(var + 1e-5) * weight +
     bias, with the running statistics as buffers."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
@@ -23,9 +25,10 @@ class InferenceBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
+        shape = (-1,) + (1,) * (x.dim() - 2)
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None])
+        return ((x - self.running_mean.view(shape)) * inv.view(shape)
+                + self.bias.view(shape))
 
 
 def reset_batch_norm_stats_(module: nn.Module) -> nn.Module:

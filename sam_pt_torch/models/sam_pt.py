@@ -17,6 +17,12 @@ into a query mask, as the JAX package does); then
     object's query frame. The data-dependent control flow runs on the
     host; tracking and decoding run on the device.
 
+A tracker that keeps per-video mask state (SuperGlue, `set_masks`) is
+given the query masks before it tracks: in `forward` (with query points,
+the masks SAM decodes from them), and with re-initialisation each
+window's masks, decoded from the window's query points; it must track
+every mask in one batch (`point_tracker_mask_batch_size`).
+
 With `use_patch_matching_filtering`, the LAB patch similarities of every
 (frame, point) pair are computed on the device in one pass and the
 cascade's bookkeeping runs on the host; the prompts are then built on the
@@ -206,12 +212,12 @@ class SamPt:
                                                      timesteps)
         elif video.get("query_points") is not None:
             query_points = np.asarray(video["query_points"], np.float32)
-            # The JAX package derives the query masks here for trackers
-            # that keep per-video mask state (SuperGlue, not ported yet).
-            self.extract_query_masks(images, query_points, emb)
+            query_masks = self.extract_query_masks(images, query_points, emb)
         else:
             raise ValueError("no query points or masks given")
         n_masks, n_points, _ = query_points.shape
+        if hasattr(self.point_tracker, "set_masks"):
+            self._set_tracker_masks(query_masks, n_masks)
 
         if self.use_point_reinit:
             host = self._forward_w_reinit(images, images_dev, emb,
@@ -245,6 +251,19 @@ class SamPt:
             "trajectories": trajectories,
             "visibilities": visibilities,
         }
+
+    def _set_tracker_masks(self, masks: np.ndarray, n_masks: int) -> None:
+        """Give a tracker that keeps per-video mask state (SuperGlue's
+        `set_masks`) the query masks [m, H, W] of its next forward. It
+        must track every mask in one batch: the mask batch must cover all
+        `n_masks` of the video."""
+        if self.point_tracker_mask_batch_size < n_masks:
+            raise ValueError(
+                f"point_tracker_mask_batch_size "
+                f"({self.point_tracker_mask_batch_size}) must cover all "
+                f"{n_masks} masks for {type(self.point_tracker).__name__}, "
+                f"which keeps the masks of one forward")
+        self.point_tracker.set_masks(masks)
 
     # ------------------------------------------------------------------
     def extract_query_points(self, images: np.ndarray,
@@ -630,6 +649,10 @@ class SamPt:
             qp_i = current_qp[tracked].copy()
             qp_i[:, :, 0] -= start
 
+            if hasattr(self.point_tracker, "set_masks"):
+                self._set_tracker_masks(self.extract_query_masks(
+                    images[start:end_tracker], qp_i,
+                    emb_map(lambda e: e[start:end_tracker], embeddings)), m)
             traj_i, vis_i = self._track_points(
                 images_dev[start:end_tracker], qp_i)
             traj_i = traj_i[:end - start]

@@ -1,11 +1,12 @@
 """The port's point trackers (counterpart of
 `sam_pt_tpu/models/tracker/__init__.py`): CoTracker, PIPS, PIPS++, RAFT,
-TAPIR and TapNet. SuperGlue is not ported yet."""
+SuperGlue, TAPIR and TapNet."""
 from .api import PointTracker
 from .cotracker.tracker import CoTrackerPointTracker
 from .pips.tracker import PipsPointTracker
 from .pips2.tracker import PipsPlusPlusPointTracker
 from .raft.tracker import RaftPointTracker
+from .superglue.tracker import SuperGluePointTracker
 from .tapir.tracker import TapirPointTracker
 from .tapnet.tracker import TapNetPointTracker
 
@@ -14,6 +15,7 @@ TRACKER_REGISTRY = {
     "pips": PipsPointTracker,
     "pips_plus_plus": PipsPlusPlusPointTracker,
     "raft": RaftPointTracker,
+    "superglue": SuperGluePointTracker,
     "tapir": TapirPointTracker,
     "tapnet": TapNetPointTracker,
 }

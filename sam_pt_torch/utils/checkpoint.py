@@ -15,7 +15,10 @@ JAX parameter tree (nested dicts of arrays, with or without the top-level
 publish numpy-pickled haiku files: `load_tapir_checkpoint` and
 `load_tapnet_checkpoint` read them through copies of the JAX package's
 haiku key maps into its flax layout, which the port's module names follow
-(`tapir_state_dict_from_jax`, `tapnet_state_dict_from_jax`).
+(`tapir_state_dict_from_jax`, `tapnet_state_dict_from_jax`). magicleap's
+SuperPoint and SuperGlue files load as they are
+(`load_superglue_checkpoint`); `superglue_state_dict_from_jax` permutes
+the JAX package's attention heads into magicleap's layout (F9).
 
 Layouts: Dense kernel [in, out] -> Linear weight [out, in] (and Conv1d
 weight [out, in, 1]); Conv kernel [kh, kw, in, out] -> Conv2d weight
@@ -779,3 +782,82 @@ def load_tapnet_checkpoint(path: str, model: nn.Module) -> nn.Module:
     raw = np.load(path, allow_pickle=True).item()
     sd = tapnet_state_dict_from_jax(convert_tapnet_haiku_params(raw))
     return load_state_dict_strict_(model, sd, path)
+
+
+def superpoint_state_dict_from_jax(params: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX package's SuperPoint parameter tree -> the port's (=
+    magicleap's `superpoint_v1.pth`) state dict."""
+    return _flax_modules_state_dict(_root(params))
+
+
+def head_permutation(dim: int = 256, heads: int = 4) -> np.ndarray:
+    """perm[c]: the JAX package's channel (`h * head_dim + d`, heads split
+    contiguously) of the port's and magicleap's channel c (`d * heads +
+    h`, heads interleaved)."""
+    c = np.arange(dim)
+    return (c % heads) * (dim // heads) + c // heads
+
+
+def superglue_state_dict_from_jax(params: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's SuperGlue parameter tree -> the port's (=
+    magicleap's) state dict, with the F9 permutation: the JAX package's
+    attention channel `h * 64 + d` becomes the port's `d * 4 + h` in the
+    q/k/v projections' output rows and biases and in the merge's input
+    columns, so that both compute the same function."""
+    p = _root(params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def c1d(dst, node, rows=None, cols=None):
+        w = _np(node["kernel"]).T
+        b = _np(node["bias"])
+        if rows is not None:
+            w, b = w[rows], b[rows]
+        if cols is not None:
+            w = w[:, cols]
+        sd[f"{dst}.weight"] = _t(w[:, :, None])
+        sd[f"{dst}.bias"] = _t(b)
+
+    def bn(dst, node):
+        _norm(sd, dst, node)
+        sd[f"{dst}.running_mean"] = _t(node["mean"])
+        sd[f"{dst}.running_var"] = _t(node["var"])
+
+    kenc = p["kenc"]
+    n_hidden = sum(k.startswith("layer_") for k in kenc)
+    for i in range(n_hidden):
+        c1d(f"kenc.encoder.{3 * i}", kenc[f"layer_{i}"]["lin"])
+        bn(f"kenc.encoder.{3 * i + 1}", kenc[f"layer_{i}"]["bn"])
+    c1d(f"kenc.encoder.{3 * n_hidden}", kenc["out"])
+    for i in range(2 * sum(k.startswith("self_") for k in p)):
+        src = p[f"{('self', 'cross')[i % 2]}_{i // 2}"]
+        dst = f"gnn.layers.{i}"
+        attn = src["attn"]
+        perm = head_permutation(_np(attn["merge"]["kernel"]).shape[0])
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            c1d(f"{dst}.attn.proj.{j}", attn[name], rows=perm)
+        c1d(f"{dst}.attn.merge", attn["merge"], cols=perm)
+        c1d(f"{dst}.mlp.0", src["mlp_0"]["lin"])
+        bn(f"{dst}.mlp.1", src["mlp_0"]["bn"])
+        c1d(f"{dst}.mlp.3", src["mlp_out"])
+    c1d("final_proj", p["final_proj"])
+    sd["bin_score"] = _t(np.asarray(p["bin_score"]).reshape(()))
+    return sd
+
+
+def load_superglue_checkpoint(superpoint_path: str, superglue_path: str,
+                              superpoint: nn.Module,
+                              superglue: nn.Module) -> None:
+    """magicleap's `superpoint_v1.pth` and `superglue_{indoor,outdoor}.pth`
+    into the port's SuperPoint and SuperGlue as they are, strictly (a key
+    missing on either side, or a shape that differs, raises); only
+    BatchNorm's step counters (`num_batches_tracked`), which inference
+    does not read, are left out."""
+    for path, model in ((superpoint_path, superpoint),
+                        (superglue_path, superglue)):
+        sd = {k: v for k, v in load_torch_state_dict(path).items()
+              if not k.endswith("num_batches_tracked")}
+        device = next(model.parameters()).device
+        load_state_dict_strict_(model, {k: v.to(device) for k, v in
+                                        sd.items()}, path)

@@ -1,6 +1,7 @@
 """Prediction visualisation: mask overlays, trajectory points, video and
-frame export (counterpart of `add_mask_to_frame`, `draw_points`,
-`render_predictions`, `save_video` and `save_frames` in
+frame export, feature PCA images and a summary writer (counterpart of
+`add_mask_to_frame`, `draw_points`, `render_predictions`, `save_video`,
+`save_frames`, `pca_feature_image` and `SummWriter` in
 `sam_pt_tpu/utils/viz.py`).
 
 Per-mask coloured alpha overlays and per-point markers coloured by
@@ -118,3 +119,104 @@ def save_frames(frames: np.ndarray, out_dir: str, prefix: str = "") -> None:
     os.makedirs(out_dir, exist_ok=True)
     for i, frame in enumerate(frames):
         write_png(os.path.join(out_dir, f"{prefix}{i:05d}.png"), frame)
+
+
+def pca_feature_image(feats: np.ndarray, valid: Optional[np.ndarray] = None,
+                      eps: float = 1e-6) -> np.ndarray:
+    """Feature maps as a 3-channel PCA image (the counterpart of the JAX
+    package's `pca_feature_image`, on the host): 3 principal components
+    fitted on the (valid-masked) pixels of the whole batch jointly (at
+    most 16384 of them, drawn with a generator seeded 0), every pixel
+    projected, each image scaled to uint8 by its 2nd and 98th
+    percentiles.
+
+    feats [H, W, C] or [T, H, W, C]; valid an optional [H, W] (or
+    [T, H, W]) mask of the pixels to fit on. Returns uint8 RGB [H, W, 3]
+    (or [T, H, W, 3]).
+    """
+    single = feats.ndim == 3
+    x = np.asarray(feats, np.float64)
+    if single:
+        x = x[None]
+    t, h, w, c = x.shape
+    flat = x.reshape(t * h * w, c) + eps
+    fit = flat
+    if valid is not None:
+        v = np.asarray(valid, bool).reshape(-1)
+        if v.any():
+            fit = flat[v]
+    mean = fit.mean(axis=0)
+    centered = fit - mean
+    if len(centered) > 16384:
+        idx = np.random.default_rng(0).choice(len(centered), 16384,
+                                              replace=False)
+        centered = centered[idx]
+    _, _, vt = np.linalg.svd(centered, full_matrices=False)
+    proj = (flat - mean) @ vt[:3].T  # [T*H*W, 3]
+    if valid is not None:
+        proj = proj * np.asarray(valid, bool).reshape(-1, 1)
+    proj = proj.reshape(t, h, w, 3)
+
+    out = np.zeros((t, h, w, 3), np.uint8)
+    for i in range(t):
+        lo = np.percentile(proj[i], 2, axis=(0, 1), keepdims=True)
+        hi = np.percentile(proj[i], 98, axis=(0, 1), keepdims=True)
+        img = np.clip((proj[i] - lo) / np.maximum(hi - lo, 1e-12), 0, 1)
+        out[i] = (img * 255).astype(np.uint8)
+    return out[0] if single else out
+
+
+class SummWriter:
+    """A summary writer to files (the counterpart of the JAX package's
+    `SummWriter`): `summ_rgb`, `summ_feat` and `summ_oned` write PNGs by
+    the port's codec, `summ_rgbs` a video by `save_video`, as
+    `<global_step:06d>_<name>.<ext>` under `output_dir`; it writes only
+    where `global_step` is a multiple of a positive `log_freq`."""
+
+    def __init__(self, output_dir: str, global_step: int = 0,
+                 log_freq: int = 1, fps: int = 8):
+        self.output_dir = output_dir
+        self.global_step = global_step
+        self.fps = fps
+        self.save_this = (log_freq > 0) and (global_step % log_freq == 0)
+        os.makedirs(output_dir, exist_ok=True)
+
+    def _path(self, name: str, ext: str) -> str:
+        safe = name.replace("/", "_")
+        return os.path.join(self.output_dir,
+                            f"{self.global_step:06d}_{safe}.{ext}")
+
+    def summ_rgb(self, name: str, rgb: np.ndarray) -> None:
+        """rgb: [H, W, 3] uint8 (or float in [0, 1])."""
+        if not self.save_this:
+            return
+        img = np.asarray(rgb)
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        write_png(self._path(name, "png"), img)
+
+    def summ_rgbs(self, name: str, rgbs: np.ndarray) -> None:
+        """rgbs: [T, H, W, 3] uint8 -> an mp4 (a gif without cv2)."""
+        if not self.save_this:
+            return
+        save_video(np.asarray(rgbs), self._path(name, "mp4"), fps=self.fps)
+
+    def summ_feat(self, name: str, feat: np.ndarray,
+                  valid: Optional[np.ndarray] = None) -> None:
+        """feat: [H, W, C] (or [T, H, W, C]) -> its PCA image (video)."""
+        if not self.save_this:
+            return
+        img = pca_feature_image(feat, valid=valid)
+        if img.ndim == 4:
+            self.summ_rgbs(name, img)
+        else:
+            self.summ_rgb(name, img)
+
+    def summ_oned(self, name: str, x: np.ndarray) -> None:
+        """x: [H, W] scalar map -> a min-max normalised grey PNG."""
+        if not self.save_this:
+            return
+        x = np.asarray(x, np.float64)
+        lo, hi = x.min(), x.max()
+        img = ((x - lo) / max(hi - lo, 1e-12) * 255).astype(np.uint8)
+        write_png(self._path(name, "png"), img)

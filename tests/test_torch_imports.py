@@ -52,6 +52,13 @@ SLICE_MODULES = [
     "sam_pt_torch.models.tracker.tapnet.tracker",
     "sam_pt_torch.models.tracker.tapnet.demo",
     "sam_pt_torch.models.tracker.standalone_demo",
+    "sam_pt_torch.models.tracker.superglue",
+    "sam_pt_torch.models.tracker.superglue.superpoint",
+    "sam_pt_torch.models.tracker.superglue.superglue",
+    "sam_pt_torch.models.tracker.superglue.tracker",
+    "sam_pt_torch.models.tracker.superglue.match_pairs",
+    "sam_pt_torch.ops.basic",
+    "sam_pt_torch.ops.label_propagation",
     "sam_pt_torch.models.sam_pt",
     "sam_pt_torch.models.sam_pt_interactive",
     "sam_pt_torch.utils.dbscan",
@@ -297,3 +304,70 @@ def test_cotracker_takes_its_yaml_keys(tmp_path):
     model = CoTracker(s=4, stride=4)
     tracker = CoTrackerPointTracker(interp_shape=(32, 40), model=model)
     assert tracker.model is model and (tracker.s, tracker.stride) == (4, 4)
+
+
+def test_match_pairs_runs_without_cv2_matplotlib_or_jax(tmp_path):
+    """`python -m sam_pt_torch.models.tracker.superglue.match_pairs` on the
+    CPU over two colour PNGs (grey conversion and resize in numpy), random
+    weights, every module of BLOCKED raising ImportError: it exits 0 and
+    writes the matches file."""
+    from sam_pt_torch.vos_eval.data.image_io import write_png
+
+    stubs = _blocking_stubs(tmp_path)
+    rng = np.random.default_rng(4)
+    images = tmp_path / "imgs"
+    os.makedirs(images)
+    for name in ("a.png", "b.png"):
+        write_png(str(images / name),
+                  rng.integers(0, 255, (60, 90, 3)).astype(np.uint8))
+    pairs = tmp_path / "pairs.txt"
+    pairs.write_text("a.png b.png\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([stubs, ROOT]))
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "sam_pt_torch.models.tracker.superglue.match_pairs",
+         "--input_pairs", str(pairs), "--input_dir", str(images),
+         "--output_dir", str(tmp_path / "out"), "--resize", "80", "56",
+         "--max_keypoints", "32", "--sinkhorn_iterations", "5",
+         "--allow_random_init", "--device", "cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "a.png b.png:" in proc.stdout
+    out = np.load(tmp_path / "out" / "a_b_matches.npz")
+    assert set(out) == {"keypoints0", "keypoints1", "matches",
+                        "match_confidence"}
+    assert out["keypoints0"].shape[1] == 2
+
+
+def test_superglue_composes_from_the_cli_config():
+    """`model/point_tracker=superglue` composes the port's tracker with
+    SamPt's points per mask, on the config's device; without checkpoints
+    it refuses unless `allow_random_init`."""
+    from sam_pt_torch.config import compose, instantiate
+    from sam_pt_torch.config import resolve_interpolations
+    from sam_pt_torch.models.tracker.superglue.tracker import (
+        SuperGluePointTracker,
+    )
+    from sam_pt_torch.vos_eval.eval import CONFIG_DIR
+
+    cfg = resolve_interpolations(compose(CONFIG_DIR, "vos_eval_root", [
+        "model/point_tracker=superglue", "device=cpu"]))
+    keys = dict(cfg["model"]["point_tracker"])
+    assert keys["_target_"].endswith("superglue.tracker."
+                                     "SuperGluePointTracker")
+    assert (keys["positive_points_per_mask"],
+            keys["negative_points_per_mask"]) == (
+        cfg["model"]["positive_points_per_mask"],
+        cfg["model"]["negative_points_per_mask"])
+    assert (keys["max_keypoints"], keys["sinkhorn_iterations"],
+            keys["match_threshold"], keys["device"]) == (1024, 100, 0.2,
+                                                         "cpu")
+    with pytest.raises(FileNotFoundError):
+        instantiate(keys)
+    keys["allow_random_init"] = True
+    tracker = instantiate(keys)
+    assert isinstance(tracker, SuperGluePointTracker)
+    assert tracker.superpoint.max_keypoints == 1024
+    assert tracker.positive_points_per_mask == 16

@@ -227,6 +227,105 @@ def random_hq_state_dict(seed: int = 0, vit_dim: int = 32,
     return {f"mask_decoder.{k}": v for k, v in as_float32(sd).items()}
 
 
+def random_superpoint_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
+    """A `superpoint_v1.pth`-namespace state dict (numpy float32):
+    `random_like`'s draws with the weights scaled to N(0, 2/fan_in) and
+    the biases to N(0, 0.01^2), so that the activations keep their scale
+    through the ReLUs and the detector's cell logits vary with the image
+    (with the biases larger, every cell keeps the same pixel)."""
+    from sam_pt_torch.models.tracker.superglue.superpoint import SuperPoint
+
+    sd = random_like(SuperPoint().state_dict(), seed)
+    return as_float32({k: v * (0.1 if k.endswith(".bias") else 2 ** 0.5)
+                       for k, v in sd.items()})
+
+
+def random_superglue_state_dict(seed: int = 0, live: bool = True,
+                                proj_scale: float = 32.0
+                                ) -> Dict[str, np.ndarray]:
+    """A `superglue_outdoor.pth`-namespace state dict (numpy float32,
+    `random_like`'s draws, bin_score 1) at the published widths. With
+    `live`, the propagations' last convs and the keypoint encoder's output
+    conv are scaled by 0.3 and `final_proj` is `proj_scale` times the
+    identity plus N(0, 0.05^2): the descriptors pass through the network
+    mostly as they are and the transport plan is peaked, so that similar
+    descriptors match (random weights give a near-uniform plan, which no
+    match passes)."""
+    from sam_pt_torch.models.tracker.superglue.superglue import SuperGlue
+
+    rng = np.random.default_rng(seed + 1)
+    sd = random_like(SuperGlue().state_dict(), seed)
+    sd["bin_score"] = np.asarray(1.0)
+    if live:
+        for key in sd:
+            if ".mlp.3." in key or key.startswith("kenc.encoder.12."):
+                sd[key] = sd[key] * 0.3
+        sd["final_proj.weight"] = (proj_scale * np.eye(256)[:, :, None]
+                                   + 0.05 * rng.standard_normal((256, 256, 1)))
+    return as_float32(sd)
+
+
+def jax_head_layout(sd: Dict[str, np.ndarray], heads: int = 4
+                    ) -> Dict[str, np.ndarray]:
+    """A magicleap SuperGlue state dict with its attention channels moved
+    to the JAX package's head layout (`h * 64 + d` from `d * 4 + h`: the
+    inverse of the F9 permutation), so that the JAX converter's tree
+    computes magicleap's function."""
+    from sam_pt_torch.utils.checkpoint import head_permutation
+
+    inv = np.argsort(head_permutation(256, heads))
+    out = dict(sd)
+    for key, value in sd.items():
+        if ".attn.proj." in key:
+            out[key] = value[inv]
+        elif key.endswith(".attn.merge.weight"):
+            out[key] = value[:, inv]
+    return out
+
+
+def save_pth(path, sd: Dict[str, np.ndarray], counters: bool = False) -> str:
+    """`sd` as a public .pth (a dict of tensors); with `counters`, the
+    BatchNorms' `num_batches_tracked` too, as torch saves them."""
+    tensors = torch_sd(sd)
+    if counters:
+        for key in sd:
+            if key.endswith(".running_mean"):
+                tensors[key.replace("running_mean", "num_batches_tracked")] = (
+                    torch.tensor(0))
+    torch.save(tensors, str(path))
+    return str(path)
+
+
+def superglue_pair(folder, weights_seed: int = 0, **kwargs
+                   ) -> Tuple[object, object]:
+    """(JAX, port) SuperGlue trackers on one random magicleap checkpoint
+    pair (`random_superpoint_state_dict`, the live
+    `random_superglue_state_dict`): the port reads the .pth files written
+    under `folder` as they are, the JAX tracker gets its converters' trees
+    of the files with the heads in its layout; `kwargs` go to both."""
+    import os
+
+    from sam_pt_torch.models.tracker.superglue.tracker import (
+        SuperGluePointTracker as TTracker,
+    )
+    from sam_pt_tpu.models.tracker.superglue.tracker import (
+        SuperGluePointTracker as JTracker,
+    )
+    from sam_pt_tpu.utils.checkpoint import (convert_superglue_state_dict,
+                                             convert_superpoint_state_dict)
+
+    sp = random_superpoint_state_dict(weights_seed)
+    sg = random_superglue_state_dict(weights_seed + 1)
+    params = {"superpoint": convert_superpoint_state_dict(sp),
+              "superglue": convert_superglue_state_dict(jax_head_layout(sg))}
+    ttracker = TTracker(
+        checkpoint_path=save_pth(os.path.join(folder, "sg.pth"), sg, True),
+        superpoint_checkpoint_path=save_pth(os.path.join(folder, "sp.pth"),
+                                            sp),
+        device="cpu", **kwargs)
+    return JTracker(params=params, **kwargs), ttracker
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_leaves(name: str, kwargs: Tuple = ()):
     """(module path, leaf name, shape) of the parameters of the JAX package's
@@ -383,8 +482,9 @@ def tiny_sam_pt_pair(tracker: str = "cotracker", hq: bool = False,
     """(JAX SamPt, port SamPt) on the same random weights, float32: the
     tiny SAM (seed 17; with `hq`, HQ-SAM's decoder, seed 19) and, by
     `tracker`, the tiny CoTracker (seed 18, most points visible), PIPS at
-    its published widths (seed 18, stride 4, points visible), or TAPIR or
-    TapNet at theirs (`haiku_tracker_pair`, seed 18), or the (JAX, port)
+    its published widths (seed 18, stride 4, points visible), TAPIR or
+    TapNet at theirs (`haiku_tracker_pair`, seed 18), SuperGlue
+    (`tiny_superglue_pair`), or the (JAX, port)
     `trackers` given; TINY_SAM_PT_SETTINGS updated by `settings`."""
     import sam_pt_tpu.utils.testing as jtesting
     from sam_pt_torch.models.sam.predictor import SamPredictor as TPredictor
@@ -401,8 +501,9 @@ def tiny_sam_pt_pair(tracker: str = "cotracker", hq: bool = False,
     if hq:
         sd.update(random_hq_state_dict(seed=19, vit_dim=32))
     sam_params = convert_sam_state_dict(sd)
-    jtracker, ttracker = trackers or {"cotracker": tiny_cotracker_pair,
-                                      "pips": pips_pair}.get(
+    jtracker, ttracker = trackers or {
+        "cotracker": tiny_cotracker_pair, "pips": pips_pair,
+        "superglue": lambda: tiny_superglue_pair(settings)}.get(
         tracker, lambda: haiku_tracker_pair(tracker, seed=18))()
     jpredictor = JPredictor(
         JSam(encoder_variant="vit_tiny_test", image_size=64, use_hq=hq),
@@ -414,6 +515,20 @@ def tiny_sam_pt_pair(tracker: str = "cotracker", hq: bool = False,
     tsampt = TSamPt(ttracker, TPredictor(tsam.eval().requires_grad_(False)),
                     **settings)
     return jsampt, tsampt
+
+
+def tiny_superglue_pair(settings) -> Tuple[object, object]:
+    """(JAX, port) SuperGlue trackers (`superglue_pair`, weights seed 18)
+    with SamPt's points per mask from `settings`, K = 96 keypoints and 20
+    Sinkhorn iterations, the matcher at its published widths."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as folder:
+        return superglue_pair(
+            folder, weights_seed=18, max_keypoints=96,
+            sinkhorn_iterations=20,
+            positive_points_per_mask=settings["positive_points_per_mask"],
+            negative_points_per_mask=settings["negative_points_per_mask"])
 
 
 def tiny_cotracker_pair():
@@ -524,6 +639,19 @@ def smooth_video(t: int = 6, h: int = 48, w: int = 64,
                      for k in range(3)], -1)
     frames = [np.roll(base, 2 * i, axis=1) + rng.normal(0, 4, (h, w, 3))
               for i in range(t)]
+    return np.clip(np.stack(frames), 0, 255).astype(np.uint8)
+
+
+def textured_video(t: int = 4, h: int = 96, w: int = 128, seed: int = 0,
+                   block: int = 4, step: int = 2) -> np.ndarray:
+    """[t, h, w, 3] uint8: `block` x `block` squares of random colour
+    moving `step` pixels a frame to the right, plus noise of +-8, so that
+    SuperPoint's keypoints and descriptors follow the texture."""
+    rng = np.random.default_rng(seed)
+    texture = rng.integers(0, 255, (h // block + 2, w // block + 2, 3))
+    texture = texture.repeat(block, 0).repeat(block, 1)
+    frames = [np.roll(texture, step * i, axis=1)[:h, :w]
+              + rng.integers(-8, 8, (h, w, 3)) for i in range(t)]
     return np.clip(np.stack(frames), 0, 255).astype(np.uint8)
 
 

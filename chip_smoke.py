@@ -167,6 +167,24 @@ Phases, in order; any failure exits non-zero before the verdict line:
      random weights are not live: it shows the entry point runs) and
      `python -m sam_pt_torch.models.tracker.superglue.match_pairs` on two
      of phase 17's PNG frames (exit 0, the matches file's keys).
+ 21. Parallel phase (`sam_pt_torch/parallel/`), each world spawned from
+     the script with its own rendezvous and a timeout; several ranks
+     share the one card over gloo (NCCL takes one rank a card), so its
+     times are bring-up numbers of a shared card, not a multi-GPU speed.
+     A world of 2 (gloo, both ranks on the card): the main path with
+     `data_parallel=True` over phase 4's two videos (fused masks agreeing
+     with phase 4's unsharded run on > 0.999 of pixels, scores within
+     1e-3, every rank's outputs bit-equal, K1/K2/K3 launches a rank as
+     its schedule), SAM ViT-H tensor-parallel over a model axis of 2
+     encoding 4 frames (8 local heads: K1 28 and K2 4 launches a rank;
+     embeddings within rel. L2 1e-2 of the unsharded encode), and TapNet
+     and TAPIR at their YAML widths time-sharded over 23 frames of 256 x
+     256 (TF32 off: tracks within 1e-3 px and logits within 1e-4 of the
+     unsharded run); a world of 4 (gloo): the TP encode on a 2 x 2 data x
+     model mesh; a world of 3 (gloo): the time-sharded trackers again; a
+     world of 1 over NCCL: the data-parallel main path; with more than
+     one card, a world of one rank a card over NCCL (the data-parallel
+     main path, the time-sharded trackers, TP on data x model 2).
 Then the script's seconds, one JSON line with the per-kernel numbers
 (rows of K1-K4 at the main path's shapes, K1/K2 at ViT-B's with the
 default model's launches and phases 19's and 20's,
@@ -175,12 +193,22 @@ at phase 14's 325 token keys, `cross_attention_hq` at phase 15's pairs
 and tokens, `cross_attention_amg` at phase 18's generator batch,
 `cross_attention_vis` at its tracked prompts and `cross_attention_self`
 (K3 at head dim 32, the decoder's self-attention from 1024 tokens) at
-its capacity run's, each held to its plain version), and as the last
-line {"ok": true, "device": {...}}. The kernel phase alone:
+its capacity run's, `window_attention_tp2` and `global_attention_tp2`
+(K1/K2 at 8 heads x 80) with a rank's launches in phase 21's TP encode,
+each held to its plain version), and as the last line {"ok": true,
+"device": {...}}. The kernel phase alone:
 
     python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
 flash_attention as fa; chip_smoke.build_phase(); \
 chip_smoke.kernel_phase(fa, torch.device('cuda'))"
+
+Phase 21 alone, after the build, the two `_tp2` kernel cases, the main
+path's unsharded run it is held to and a probe of the backends (gloo's
+`all_reduce` of CUDA tensors by 2 ranks on one card, each dtype and 256
+MB of int32; what NCCL says to 2 ranks on one card):
+
+    python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --parallel --cards  # one rank a card, 2+ cards
 
 The matrix products of the main path over 35 x 3 and of a 24-frame
 encode, by input shape, with a version of the package to compare (a
@@ -550,6 +578,9 @@ def kernel_cases(fa, device) -> dict:
             "relpos_window": lambda: relpos(1600, 14, 14),
             "window_vit_b": lambda: window(12, 64),
             "global_vit_b": lambda: global_(12, 64),
+            # ViT-H's heads split over a model axis of 2 (phase 21)
+            "window_tp2": lambda: window(8, 80),
+            "global_tp2": lambda: global_(8, 80),
             "global_crop": global_crop,
             "cross_interactive": cross_interactive,
             "cross_hq": cross_hq, "cross_hq_masked": cross_hq_masked,
@@ -3393,6 +3424,502 @@ def match_pairs_phase(card: str, args=("--device", "cuda")) -> None:
 
 
 # JSON row -> (source, the TPU function it replaces)
+# ---------------------------------------------------------------------------
+# Phase 21: the parallel layer (`sam_pt_torch/parallel/`), each world
+# spawned from the script (`parallel.launch.run_world`). Several ranks
+# share the one card over gloo; times taken so are bring-up numbers of a
+# shared card, not a multi-GPU speed.
+# ---------------------------------------------------------------------------
+TP_FRAMES = 4  # ViT-H frames the tensor-parallel encode takes, one chunk
+TIME_FRAMES = 23  # time-sharded TapNet/TAPIR frames: no multiple of 2 or 3
+TIME_QUERIES = 17
+TIME_HW = 256  # TapNet's and TAPIR's input size
+DP_AGREEMENT = 0.999  # fused-mask pixels equal to the unsharded run's
+DP_SCORE_ATOL = 1e-3
+TP_REL_L2 = 1e-2
+TIME_TRACK_ATOL = 1e-3  # raster px, TF32 off
+TIME_LOGIT_ATOL = 1e-4  # occlusion (and TAPIR's expected-distance) logits
+WORLD_TIMEOUT = 600.0
+
+
+def digest(*arrays) -> str:
+    """One hash of the bytes of `arrays` (tensors or numpy arrays)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().contiguous().view(torch.uint8).numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def build_main_dp(device):
+    """The main path (ViT-H + CoTracker, random bf16 weights from seed 0,
+    the live biases) with `data_parallel=True`: phase 4's model on a
+    mesh of every rank."""
+    from sam_pt_torch.build import build_sam_pt
+
+    sam_pt = build_sam_pt(device, dtype=torch.bfloat16, seed=0,
+                          data_parallel=True)
+    bias_for_a_live_run(sam_pt)
+    return sam_pt
+
+
+def build_vit_h_sam(device):
+    """SAM ViT-H with the main path's weights (`build_sam_pt`'s SAM: the
+    first draws of a generator on the device seeded 0), bf16."""
+    from sam_pt_torch.models.batch_norm import reset_batch_norm_stats_
+    from sam_pt_torch.models.sam.sam_model import Sam
+    from sam_pt_torch.utils.checkpoint import randomize_
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    sam = reset_batch_norm_stats_(randomize_(Sam("vit_h").to(device),
+                                             generator))
+    return sam.to(torch.bfloat16).eval().requires_grad_(False)
+
+
+def build_haiku_models(device):
+    """TapNet's and TAPIR's models at their YAML widths, float32, the
+    random weights their trackers draw from seed 1."""
+    from sam_pt_torch.build import TRACKER_SETTINGS
+    from sam_pt_torch.models.tracker import TRACKER_REGISTRY
+
+    return {name: TRACKER_REGISTRY[name](
+        allow_random_init=True, seed=1, device=device,
+        **TRACKER_SETTINGS[name]).model for name in ("tapnet", "tapir")}
+
+
+def tp_schedule(encoder, chunks: int = 1) -> dict:
+    """K1 and K2 launches of `chunks` encode calls of a (sharded) ViT."""
+    n_global = len(encoder.global_attn_indexes)
+    return {"window": (len(encoder.blocks) - n_global) * chunks,
+            "global": n_global * chunks}
+
+
+def dp_job(device, build, schedule, videos):
+    """A data-parallel SamPt (`build(device)`) over `videos` on this rank:
+    launches (reset just before, read just after) against `schedule`,
+    the fused masks, scores, a digest of every output, the wall time of
+    that first pass and of a second, timed one."""
+    from sam_pt_torch.ops import flash_attention as fa
+    from sam_pt_torch.parallel.comm import group_size
+    from sam_pt_torch.vos_eval.eval import device_fuse_index_masks
+
+    sam_pt = build(device)
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    sync()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [run_video(sam_pt, v, device_fuse_index_masks) for v in videos]
+    sync()
+    first = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    t0 = time.perf_counter()
+    for v in videos:
+        run_video(sam_pt, v, device_fuse_index_masks)
+    sync()
+    wall = time.perf_counter() - t0
+    keys = ("logits", "scores", "scores_per_frame", "trajectories",
+            "visibilities")
+    return {"launches": launches,
+            "expected": schedule(sam_pt, [v["image"].shape[0]
+                                          for v in videos],
+                                 [v["image"].shape[0] * len(v["query_masks"])
+                                  for v in videos]),
+            "masks": [m for _, m in outs],
+            "scores": [o["scores"].float().cpu().numpy() for o, _ in outs],
+            "digest": digest(*[o[k] for o, m in outs for k in keys],
+                             *[m for _, m in outs]),
+            "chunks": (sam_pt.sam_encode_chunk, sam_pt.sam_decode_chunk),
+            "world": group_size(), "first": first, "wall": wall}
+
+
+def tp_job(device, build, schedule, frames, n_model, n_data):
+    """ViT SAM (`build(device)`) sharded over a (n_data x n_model) mesh
+    encoding `frames` [B, H, W, 3] uint8 in one chunk: launches against
+    `schedule(encoder)`, the local heads, rank 0's embeddings, a
+    digest."""
+    from sam_pt_torch.models.sam.predictor import SamPredictor
+    from sam_pt_torch.ops import flash_attention as fa
+    from sam_pt_torch.parallel.comm import group_rank
+    from sam_pt_torch.parallel.tensor_parallel import create_tp_mesh
+
+    sam = build(device)
+    sam.tp_axis, sam.dp_axis = "model", ("data" if n_data > 1 else None)
+    pred = SamPredictor(sam, mesh=create_tp_mesh(n_model, n_data))
+    images = torch.from_numpy(frames).to(device)
+    hw = tuple(frames.shape[1:3])
+    pred.encode_frames(images, hw)  # warm-up
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    sync()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb = pred.encode_frames(images, hw)
+    sync()
+    wall = time.perf_counter() - t0
+    encoder = sam.image_encoder
+    return {"launches": dict(fa.LAUNCHES), "expected": schedule(encoder),
+            "local_heads": encoder.blocks[0].attn.num_heads,
+            "emb": emb.float().cpu().numpy() if group_rank() == 0 else None,
+            "digest": digest(emb), "wall": wall}
+
+
+def time_job(device, build, video, query_points):
+    """TapNet and TAPIR (`build(device)`) time-sharded over every rank,
+    float32 with TF32 off: their outputs, a digest, the wall time."""
+    from sam_pt_torch.parallel.mesh import create_mesh
+    from sam_pt_torch.parallel.temporal import (
+        tapir_forward_time_sharded,
+        tapnet_forward_time_sharded,
+    )
+
+    forward = {"tapnet": tapnet_forward_time_sharded,
+               "tapir": tapir_forward_time_sharded}
+    models = build(device)
+    mesh = create_mesh()
+    found = {}
+    with no_tf32(), torch.no_grad():
+        for name, model in models.items():
+            t0 = time.perf_counter()
+            out = forward[name](model, torch.from_numpy(video).to(device),
+                                torch.from_numpy(query_points).to(device),
+                                mesh)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            found[name] = {"out": out, "digest": digest(*out.values()),
+                           "wall": time.perf_counter() - t0}
+    return found
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Matrix products and convolutions in full float32 until the block
+    ends."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def world_jobs(device, jobs):
+    """Each (function, args) of `jobs` on this rank, in order:
+    `function(device, *args)`; their results."""
+    return [fn(device, *args) for fn, args in jobs]
+
+
+def time_inputs(seed: int = 21):
+    """TIME_FRAMES random frames of TIME_HW^2 in [-1, 1] and TIME_QUERIES
+    (t, y, x) queries in the 256 raster, spread over the frames."""
+    rng = np.random.default_rng(seed)
+    video = rng.uniform(-1, 1, (TIME_FRAMES, TIME_HW, TIME_HW, 3)).astype(
+        np.float32)
+    qp = np.stack([np.linspace(0, TIME_FRAMES - 1, TIME_QUERIES).round(),
+                   rng.uniform(8, 248, TIME_QUERIES),
+                   rng.uniform(8, 248, TIME_QUERIES)], -1).astype(np.float32)
+    return video, qp
+
+
+def check_dp(label: str, ranks, reference, where: str) -> None:
+    """Phase 21's data-parallel checks of one world's ranks against the
+    unsharded run (`reference`: per video, fused masks and scores);
+    `where` says where the ranks ran, for the times."""
+    first = ranks[0]
+    for r, res in enumerate(ranks):
+        if res["launches"] != res["expected"]:
+            raise SystemExit(f"{label}: rank {r} launches {res['launches']} "
+                             f"differ from its schedule {res['expected']}")
+        if res["digest"] != first["digest"]:
+            raise SystemExit(f"{label}: rank {r}'s outputs differ from rank "
+                             f"0's")
+    for v, (masks, scores) in enumerate(reference):
+        agree = float((first["masks"][v] == masks).mean())
+        score_err = float(np.abs(first["scores"][v] - scores).max())
+        log(f"{label}: video {v} fused masks agree on {agree:.6f} of pixels "
+            f"(> {DP_AGREEMENT}), scores within {score_err:.2e} "
+            f"(<= {DP_SCORE_ATOL:g})")
+        if agree <= DP_AGREEMENT or not score_err <= DP_SCORE_ATOL:
+            raise SystemExit(f"{label}: video {v} differs from the "
+                             f"unsharded run")
+    log(f"{label}: {len(ranks)} rank(s), chunks (encode, decode) "
+        f"{first['chunks']}, launches a rank {first['launches']} as "
+        f"scheduled, outputs bit-equal across ranks; both videos in "
+        f"{max(r['first'] for r in ranks):.3f} s (first pass) and "
+        f"{max(r['wall'] for r in ranks):.3f} s (second pass; {where})")
+
+
+def check_tp(label: str, ranks, reference: np.ndarray, heads: int) -> dict:
+    first = ranks[0]
+    for r, res in enumerate(ranks):
+        if res["launches"]["window"] != res["expected"]["window"] or res[
+                "launches"]["global"] != res["expected"]["global"]:
+            raise SystemExit(f"{label}: rank {r} launches {res['launches']} "
+                             f"differ from {res['expected']}")
+        if res["local_heads"] != heads or res["digest"] != first["digest"]:
+            raise SystemExit(f"{label}: rank {r} has {res['local_heads']} "
+                             f"heads or outputs unlike rank 0's")
+    err = rel_l2(torch.from_numpy(first["emb"]), torch.from_numpy(reference))
+    log(f"{label}: embeddings rel. L2 {err:.3e} from the unsharded encode "
+        f"(< {TP_REL_L2:g}), {heads} local heads, K1 "
+        f"{first['launches']['window']} and K2 "
+        f"{first['launches']['global']} launches a rank, encode "
+        f"{max(r['wall'] for r in ranks) * 1e3:.1f} ms")
+    if not err < TP_REL_L2:
+        raise SystemExit(f"{label}: TP embeddings differ from unsharded")
+    return first["launches"]
+
+
+def check_time(label: str, ranks, reference) -> None:
+    for name, ref in reference.items():
+        got = ranks[0][name]
+        if any(r[name]["digest"] != got["digest"] for r in ranks):
+            raise SystemExit(f"{label} {name}: ranks differ")
+        errs = {k: float(np.abs(got["out"][k] - ref[k]).max()) for k in ref}
+        limits = {k: TIME_TRACK_ATOL if k == "tracks" else TIME_LOGIT_ATOL
+                  for k in ref}
+        log(f"{label} {name}: {TIME_FRAMES} frames over {len(ranks)} ranks: "
+            + ", ".join(f"{k} within {errs[k]:.2e} (<= {limits[k]:g})"
+                        for k in ref)
+            + f" of the unsharded run; "
+              f"{max(r[name]['wall'] for r in ranks):.3f} s")
+        if not all(errs[k] <= limits[k] for k in ref):
+            raise SystemExit(f"{label} {name}: differs from unsharded")
+
+
+def parallel_phase(device, card: str, dp_reference, videos=None,
+                   shared_card: bool = True) -> dict:
+    """Phase 21 (see the module docstring). `dp_reference`: per video of
+    `videos` (VIDEOS by default), the unsharded main path's fused masks
+    and scores. With more than one card, a world of one rank a card
+    over NCCL (DP, time-sharded, and TP on data x model 2); without
+    `shared_card`, only that world. Returns the TP world of 2's K1/K2
+    launches a rank (None without `shared_card`)."""
+    from sam_pt_torch.parallel.launch import run_world
+
+    t_phase = time.perf_counter()
+    if videos is None:
+        videos = [make_video(t, m, seed=i) for i, (t, m) in enumerate(VIDEOS)]
+    frames = videos[0]["image"][:TP_FRAMES]
+    time_video, qp = time_inputs()
+    builders = PARALLEL_BUILDERS
+    # Unsharded references on this device.
+    sam = builders["sam"](device)
+    from sam_pt_torch.models.sam.predictor import SamPredictor
+    tp_ref = SamPredictor(sam).encode_frames(
+        torch.from_numpy(frames).to(device), tuple(frames.shape[1:3]))
+    tp_ref = tp_ref.float().cpu().numpy()
+    heads = sam.image_encoder.blocks[0].attn.num_heads
+    del sam
+    with no_tf32(), torch.no_grad():
+        time_ref = {}
+        for name, model in builders["haiku"](device).items():
+            out = model(torch.from_numpy(time_video).to(device),
+                        torch.from_numpy(qp).to(device))
+            time_ref[name] = {k: v.cpu().numpy() for k, v in out.items()}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    on = "cpu" if device.type == "cpu" else f"cuda:{device.index or 0}"
+    run = {"timeout": WORLD_TIMEOUT}
+
+    dp = (dp_job, (builders["dp"], builders["schedule"], videos))
+    tp2, tp4 = ((tp_job, (builders["sam"], builders["tp_schedule"], frames,
+                          2, n_data)) for n_data in (1, 2))
+    tm = (time_job, (builders["haiku"], time_video, qp))
+    tp_launches = None
+    if shared_card:
+        tp_launches = shared_card_worlds(card, on, run, dp, tp2, tp4, tm,
+                                         dp_reference, tp_ref, heads,
+                                         time_ref)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cards > 1:  # one rank a card over NCCL, every card of the host
+        t0 = time.perf_counter()
+        tpn = (tp_job, (builders["sam"], builders["tp_schedule"], frames, 2,
+                        cards // 2))
+        jobs = [dp, tm] + ([tpn] if cards % 2 == 0 else [])
+        ranks = run_world(world_jobs, cards, backend="nccl", args=(jobs,),
+                          **run)
+        log(f"parallel: world of {cards} (nccl, one rank a card) took "
+            f"{time.perf_counter() - t0:.1f} s")
+        check_dp(f"parallel dp nccl x{cards}", [r[0] for r in ranks],
+                 dp_reference, f"one rank a card, {card}")
+        check_time(f"parallel time nccl x{cards}", [r[1] for r in ranks],
+                   time_ref)
+        if cards % 2 == 0:
+            check_tp(f"parallel tp nccl x{cards} (data {cards // 2} x "
+                     f"model 2)", [r[2] for r in ranks], tp_ref, heads // 2)
+    log(f"parallel: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return tp_launches
+
+
+def shared_card_worlds(card, on, run, dp, tp2, tp4, tm, dp_reference,
+                       tp_ref, heads, time_ref) -> dict:
+    """Phase 21's worlds of ranks that share the card `on`: 2, 4 and 3
+    over gloo, then 1 over NCCL on a card. Returns the TP world of 2's
+    K1/K2 launches a rank."""
+    from sam_pt_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    two = run_world(world_jobs, 2, backend="gloo", device=on,
+                    args=([dp, tp2, tm],), **run)
+    log(f"parallel: world of 2 (gloo, both ranks on {on}) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_dp("parallel dp gloo x2", [r[0] for r in two], dp_reference,
+             f"both ranks on {on}, {card}")
+    tp_launches = check_tp("parallel tp gloo x2 (model 2)",
+                           [r[1] for r in two], tp_ref, heads // 2)
+    check_time("parallel time gloo x2", [r[2] for r in two], time_ref)
+
+    t0 = time.perf_counter()
+    four = run_world(world_jobs, 4, backend="gloo", device=on,
+                     args=([tp4],), **run)
+    log(f"parallel: world of 4 (gloo, all ranks on {on}) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_tp("parallel tp gloo x4 (data 2 x model 2)", [r[0] for r in four],
+             tp_ref, heads // 2)
+
+    t0 = time.perf_counter()
+    three = run_world(world_jobs, 3, backend="gloo", device=on,
+                      args=([tm],), **run)
+    log(f"parallel: world of 3 (gloo, all ranks on {on}) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_time("parallel time gloo x3", [r[0] for r in three], time_ref)
+
+    if on != "cpu":
+        t0 = time.perf_counter()
+        one = run_world(world_jobs, 1, backend="nccl", args=([dp],), **run)
+        log(f"parallel: world of 1 (nccl) took "
+            f"{time.perf_counter() - t0:.1f} s")
+        check_dp("parallel dp nccl x1", [r[0] for r in one], dp_reference,
+                 f"{on}, {card}")
+    return tp_launches
+
+
+def probe_rank(device) -> dict:
+    """This backend's `all_reduce` of CUDA tensors: each dtype the
+    parallel layer reduces (every rank adds rank + 1), then the time of
+    one 256 MB int32 reduction after a warm one."""
+    import torch.distributed as dist
+
+    from sam_pt_torch.parallel.comm import group_rank, group_size
+
+    found = {}
+    for dtype in (torch.int32, torch.float32, torch.uint8, torch.bfloat16):
+        x = torch.full((1 << 20,), group_rank() + 1, dtype=dtype,
+                       device=device)
+        dist.all_reduce(x)
+        want = group_size() * (group_size() + 1) // 2
+        found[str(dtype)] = bool((x.float() == want).all())
+    x = torch.ones(64 << 20, dtype=torch.int32, device=device)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    found["ms_256mb"] = (time.perf_counter() - t0) * 1e3
+    return found
+
+
+def nccl_rank(rank: int, init_method: str, results) -> None:
+    """Rank `rank` of 2 joining NCCL on cuda:0 as a raw
+    `init_process_group` would, with no check of ours: what NCCL says."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=init_method, rank=rank,
+                                world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        dist.all_reduce(torch.ones(1, device="cuda:0"))
+        torch.cuda.synchronize()
+        results.put((rank, "no error"))
+    except Exception as exc:  # reported, not raised: the refusal is the point
+        results.put((rank, str(exc).strip().splitlines()[-1]))
+
+
+def probe_phase(card: str) -> None:
+    """Why phase 21 shares the card over gloo: gloo's `all_reduce` of
+    CUDA tensors for 2 ranks on cuda:0 (each dtype, and 256 MB of int32)
+    and what NCCL says to 2 ranks on one card."""
+    import multiprocessing
+    import tempfile
+
+    from sam_pt_torch.parallel.launch import run_world
+
+    for r, found in enumerate(run_world(probe_rank, 2, backend="gloo",
+                                        device="cuda:0", timeout=300)):
+        log(f"probe gloo x2 on cuda:0, rank {r}: all_reduce correct for "
+            f"{[k for k, v in found.items() if v is True]}, 256 MB of int32 "
+            f"in {found['ms_256mb']:.1f} ms on {card}")
+        if not all(v for k, v in found.items() if k != "ms_256mb"):
+            raise SystemExit("gloo reduced a CUDA tensor wrong")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=nccl_rank, daemon=True, args=(
+            r, f"file://{tmp}/rendezvous", results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        said = [results.get(timeout=120) for _ in procs]
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+    for r, message in sorted(said):
+        log(f"probe nccl x2 on cuda:0, rank {r}: {message}")
+
+
+def parallel_only(card: str, cards_only: bool = False) -> None:
+    """`--parallel`: the build, the two `_tp2` kernel cases, the main
+    path unsharded (phase 4's first run, the reference phase 21 holds its
+    data-parallel runs to), the probe and phase 21; with `cards_only`
+    (`--cards`, a host of several cards), phase 21's world of one rank a
+    card alone."""
+    from sam_pt_torch.build import build_sam_pt
+    from sam_pt_torch.ops import flash_attention as fa
+    from sam_pt_torch.vos_eval.eval import device_fuse_index_masks
+
+    build_phase()
+    device = torch.device("cuda")
+    cases = kernel_cases(fa, device)
+    measure_cases({k: cases[k] for k in ("window_tp2", "global_tp2")})
+    sam_pt = build_sam_pt(device, dtype=torch.bfloat16, seed=0)
+    bias_for_a_live_run(sam_pt)
+    videos = [make_video(t, m, seed=i) for i, (t, m) in enumerate(VIDEOS)]
+    t0 = time.perf_counter()
+    outs = [run_video(sam_pt, v, device_fuse_index_masks) for v in videos]
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for v in videos:
+        run_video(sam_pt, v, device_fuse_index_masks)
+    torch.cuda.synchronize()
+    log(f"parallel: the main path unsharded, both videos in {first:.3f} s "
+        f"(first pass) and {time.perf_counter() - t0:.3f} s (second pass) "
+        f"on {card}")
+    reference = [(m, o["scores"].float().cpu().numpy()) for o, m in outs]
+    del sam_pt, outs
+    torch.cuda.empty_cache()
+    if not cards_only:
+        probe_phase(card)
+    parallel_phase(device, card, reference, videos,
+                   shared_card=not cards_only)
+
+
+# Phase 21's builders, by reference: each world's ranks call them, and a
+# rehearsal puts small ones in their place.
+PARALLEL_BUILDERS = {"dp": build_main_dp, "sam": build_vit_h_sam,
+                     "haiku": build_haiku_models,
+                     "schedule": launch_schedule, "tp_schedule": tp_schedule}
+
+
 KERNEL_SOURCES = {
     "window": ("sam_pt_torch/csrc/window_attention.cu",
                "sam_pt_tpu/ops/flash_attention.py:542"),
@@ -3412,7 +3939,8 @@ VIT_B_ROWS = ("window", "global")
 def kernel_json(report: dict, launches: dict, route_launches: dict,
                 default_launches: dict, crop_launches: dict,
                 interactive_launches: dict, *, hq_launches: dict,
-                vis_launches: dict, haiku_launches: dict) -> list:
+                vis_launches: dict, haiku_launches: dict,
+                tp_launches: dict = None) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
@@ -3432,7 +3960,10 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
     then K3 at the VIS evaluate run's tracked prompts
     (`cross_attention_vis`, both directions) with SamPt's K3 launches in
     that run; then K3 at head dim 32 (`cross_attention_self`) with every
-    K3 launch of the VIS capacity run, which takes it."""
+    K3 launch of the VIS capacity run, which takes it; then, with
+    `tp_launches`, K1 and K2 at ViT-H's heads split over a model axis of
+    2 (`_tp2`: 8 heads x 80) with a rank's launches in phase 21's TP
+    encode over a world of 2."""
     kernels = []
     for key, (source, replaces) in KERNEL_SOURCES.items():
         r = report[key]
@@ -3497,6 +4028,16 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
         for c in cases[1:]:
             row.update({f + "_image_to_token": report[c][f] for f in TIMES})
         kernels.append(row)
+    for key in ("window", "global") if tp_launches is not None else ():
+        source, replaces = KERNEL_SOURCES[key]
+        r = report[f"{key}_tp2"]
+        kernels.append({"name": f"{key}_attention_tp2", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": tp_launches[key],
+                        "launches_of": "one rank of phase 21's TP encode "
+                                       "(world of 2, model axis 2)",
+                        "max_abs_err": r["max_abs_err"],
+                        **{f: r[f] for f in TIMES}})
     return kernels
 
 
@@ -3597,6 +4138,9 @@ def main() -> int:
         log(f"gemm profile of {sam_pt_torch.__file__}")
         gemm_profile(card, os.path.basename(os.path.realpath(package)))
         return 0
+    if "--parallel" in sys.argv[1:]:
+        parallel_only(card, cards_only="--cards" in sys.argv[1:])
+        return 0
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -3653,6 +4197,9 @@ def main() -> int:
     for (t, m), (out, masks) in zip(VIDEOS, outs):
         log(f"slice: video {t} frames x {m} objects: "
             + check_outputs(out, masks, t, m, n_points))
+    # Phase 21 holds the data-parallel main path to these.
+    dp_reference = [(masks, out["scores"].float().cpu().numpy())
+                    for out, masks in outs]
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3705,13 +4252,15 @@ def main() -> int:
               label="cli superglue")
     match_pairs_phase(card)
     log(f"cli superglue and match_pairs: {time.perf_counter() - t0:.1f} s")
+    tp_launches = parallel_phase(device, card, dp_reference, videos)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
         f"to the verdict")
     log(json.dumps({"kernels": kernel_json(
         report, launches, route_launches, default_launches, crop_launches,
         interactive_launches, hq_launches=hq_launches,
-        vis_launches=vis_launches, haiku_launches=haiku_launches)}))
+        vis_launches=vis_launches, haiku_launches=haiku_launches,
+        tp_launches=tp_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

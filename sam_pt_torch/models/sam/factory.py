@@ -22,7 +22,9 @@ def build_predictor(variant: str = "vit_b", checkpoint: Optional[str] = None,
                     dtype: str = "bfloat16", image_size: int = 1024,
                     allow_random_init: bool = False, hq: bool = False,
                     hq_token_only: bool = False, seed: int = 0,
-                    crop_pad_tokens: bool = False,
+                    crop_pad_tokens: bool = False, mesh=None,
+                    tp_axis: Optional[str] = None,
+                    dp_axis: Optional[str] = None,
                     device: Union[str, torch.device] = "cuda"
                     ) -> SamPredictor:
     """A SamPredictor for a ViT variant (`vit_b`, `vit_l`, `vit_h`) or
@@ -34,14 +36,19 @@ def build_predictor(variant: str = "vit_b", checkpoint: Optional[str] = None,
     statistics at mean 0, variance 1). A missing file raises
     FileNotFoundError otherwise. `crop_pad_tokens` runs a ViT encoder on
     the tokens that cover the frame only (opt-in; it deviates from the
-    reference)."""
+    reference). With a `mesh` (`parallel.mesh.Mesh`), the predictor splits
+    its batches over the mesh's `data` axis or, with `tp_axis`, shards
+    the encoder over that axis and splits frames over `dp_axis`, if given
+    (`SamPredictor`); every rank builds the same weights."""
     if variant != "vit_t" and variant not in VIT_VARIANTS:
         raise ValueError(f"unknown SAM variant {variant!r}")
     model = Sam(variant, image_size=image_size,
                 crop_pad_tokens=crop_pad_tokens, use_hq=hq,
-                hq_token_only=hq_token_only)
+                hq_token_only=hq_token_only, tp_axis=tp_axis,
+                dp_axis=dp_axis)
     if not load_or_randomize_(model, checkpoint,
                               allow_random_init=allow_random_init, seed=seed,
                               device=device):
         reset_batch_norm_stats_(model)
-    return SamPredictor(model.to(DTYPES[dtype]).eval().requires_grad_(False))
+    return SamPredictor(model.to(DTYPES[dtype]).eval().requires_grad_(False),
+                        mesh=mesh)

@@ -19,6 +19,10 @@ Semantics kept from the JAX package:
     (`ops/flash_attention.py`), at the native head dim (80 at ViT-H: no
     padding to 128). Smaller grids take the plain path. An `Attention`
     built on its own runs K4 from 1024 tokens.
+  - Tensor parallelism (`parallel/tensor_parallel.py::shard_params_tp`):
+    each block of a sharded encoder keeps its rank's heads and hidden
+    units and closes its attention and MLP with one `psum` each over the
+    model group; the attention runs K1/K2 at the local head count.
   - Pad-token cropping (opt-in, `valid_hw`): the transformer runs only on
     the token rows and columns that cover the resized frame (window spans
     over real windows only, global blocks over the cropped grid with
@@ -36,6 +40,7 @@ from torch import nn
 
 from ...ops import flash_attention as fa
 from ...ops.resize import resize_bilinear
+from ...parallel import tensor_parallel as tp
 
 VIT_VARIANTS = {
     "vit_b": dict(embed_dim=768, depth=12, num_heads=12,
@@ -118,6 +123,11 @@ class Attention(nn.Module):
     counterpart here, and such a module takes K4 too.
     """
 
+    # Ranks of the model axis this module's heads are sharded over, and
+    # their group (`shard_params_tp`); 1: not sharded.
+    tp_size = 1
+    tp_group = None
+
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int],
                  raw_qkv: bool = False):
         super().__init__()
@@ -134,20 +144,25 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
                 cropped: bool = False) -> torch.Tensor:
+        if self.tp_size > 1:
+            return tp.tp_shardmap_attention(x, self, hw, cropped)
+        return self.proj(self.attend(self.qkv(x), hw, cropped))
+
+    def attend(self, qkv: torch.Tensor, hw: Tuple[int, int],
+               cropped: bool = False) -> torch.Tensor:
+        """qkv [B, N, 3*H*D], last axis laid out (3, H, D) -> the heads'
+        outputs [B, N, H*D] (H: this rank's heads when sharded)."""
         h, w = hw
         heads = self.num_heads
-        qkv = self.qkv(x)  # [B, N, 3*H*D], last axis laid out (3, H, D)
         rh = rel_pos_table(self.rel_pos_h, h, h, cropped).to(qkv.dtype)
         rw = rel_pos_table(self.rel_pos_w, w, w, cropped).to(qkv.dtype)
         if self.raw_qkv and h * w >= 1024:
-            out = fa.global_attention(qkv, rh, rw, scale=self.scale, kh=h,
-                                      kw=w, heads=heads)
-        elif self.raw_qkv and h == w and h * w <= fa.WINDOW_MAX_TOKENS:
-            out = fa.window_attention(qkv, rh, rw, scale=self.scale,
-                                      heads=heads)
-        else:
-            out = self._split_heads(qkv, rh, rw, h, w)
-        return self.proj(out)
+            return fa.global_attention(qkv, rh, rw, scale=self.scale, kh=h,
+                                       kw=w, heads=heads)
+        if self.raw_qkv and h == w and h * w <= fa.WINDOW_MAX_TOKENS:
+            return fa.window_attention(qkv, rh, rw, scale=self.scale,
+                                       heads=heads)
+        return self._split_heads(qkv, rh, rw, h, w)
 
     def _split_heads(self, qkv, rh, rw, h, w):
         """The JAX module's split-q/k/v routes: K4 from 1024 tokens
@@ -176,16 +191,23 @@ class Attention(nn.Module):
 
 
 class MLPBlock(nn.Module):
+    tp_size = 1  # as `Attention`'s
+    tp_group = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.lin1 = nn.Linear(dim, hidden)
         self.lin2 = nn.Linear(hidden, dim)
 
+    @staticmethod
+    def activation(y: torch.Tensor) -> torch.Tensor:
+        return F.gelu(y, approximate="tanh" if y.dtype == torch.bfloat16
+                      else "none")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.lin1(x)
-        y = F.gelu(y, approximate="tanh" if y.dtype == torch.bfloat16
-                   else "none")
-        return self.lin2(y)
+        if self.tp_size > 1:
+            return tp.tp_mlp(x, self)
+        return self.lin2(self.activation(self.lin1(x)))
 
 
 class Block(nn.Module):
@@ -251,6 +273,8 @@ def window_pad_mask(batch: int, hw, padded_hw, window: int, device,
 
 class ImageEncoderViT(nn.Module):
     """SAM image encoder: [B, S, S, 3] normalised -> [B, S/16, S/16, 256]."""
+
+    tp_size = 1  # ranks of the model axis (`shard_params_tp`)
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,

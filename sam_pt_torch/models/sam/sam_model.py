@@ -34,7 +34,11 @@ class Sam(nn.Module):
     cover the resized frame, and the embedding is zero off it. `use_hq`
     takes HQ-SAM's decoder, which also reads the encoder's early features:
     embeddings are then {'emb', 'interm'} dicts; `hq_token_only` keeps the
-    HQ mask alone in the single-mask output.
+    HQ mask alone in the single-mask output. `tp_axis` names the mesh
+    axis a ViT encoder's heads and MLP are sharded over and `dp_axis` the
+    one frames are split over on a 2-D (data x model) mesh, as the JAX
+    model's do; `SamPredictor(mesh=...)` shards the encoder
+    (`parallel/tensor_parallel.py`). TinyViT refuses `tp_axis`.
     """
 
     mask_threshold = 0.0
@@ -42,8 +46,14 @@ class Sam(nn.Module):
     def __init__(self, encoder="vit_h", image_size: int = 1024,
                  prompt_embed_dim: int = 256, mask_in_chans: int = 16,
                  crop_pad_tokens: bool = False, use_hq: bool = False,
-                 hq_token_only: bool = False):
+                 hq_token_only: bool = False, tp_axis: Optional[str] = None,
+                 dp_axis: Optional[str] = None):
         super().__init__()
+        if encoder == "vit_t" and tp_axis is not None:
+            raise ValueError("tp_axis is only supported for ViT encoder "
+                             "variants (vit_b/l/h), not TinyViT")
+        self.tp_axis = tp_axis
+        self.dp_axis = dp_axis
         self.crop_pad_tokens = crop_pad_tokens
         self.use_hq = use_hq
         self.hq_token_only = hq_token_only

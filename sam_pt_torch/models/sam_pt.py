@@ -31,6 +31,15 @@ host, as on the JAX package's host path.
 The box-refinement passes run unconditionally: the JAX package stops its
 loop at the exact fixed point, which gives the same output, but on a GPU
 that test costs a host sync per pass.
+
+Data parallelism (`data_parallel=True`, over `mesh` or a mesh of every
+rank): every rank of a `torch.distributed` world runs this same host
+orchestration with the same seed; the encode and decode chunks are rounded up to multiples of the
+mesh's `data` axis, and the predictor, rebuilt on the mesh, encodes and
+decodes this rank's slice of each chunk and gathers the results, so every
+rank holds identical bits and takes the same host decisions (gates,
+k-medoids), and returns the same outputs. In one process it is a world of
+one.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from ..utils.query_points import (
     extract_mixed_points,
     extract_random_mask_points,
 )
+from ..parallel.mesh import batch_sharding, check_mesh, create_mesh
 from ..utils.util import PointVisibilityType
 from .sam.predictor import SamPredictor
 from .tracker.api import PointTracker
@@ -139,9 +149,7 @@ class SamPt:
         mesh=None,
         logits_dtype: torch.dtype = torch.float16,
     ):
-        if data_parallel or mesh is not None:
-            raise NotImplementedError(
-                "data parallelism over several devices is not ported yet")
+        check_mesh(mesh)
         if reinit_point_tracker_horizon < reinit_horizon:
             raise ValueError("reinit_point_tracker_horizon must be at least "
                              "reinit_horizon")
@@ -170,8 +178,12 @@ class SamPt:
         # Host-to-device upload granularity in the JAX package; the port
         # uploads each video in one copy, so it is kept and not used.
         self.upload_chunk = upload_chunk
+        # `data_parallel` wires `mesh` (or a mesh of every rank) at the
+        # first forward (`_setup_mesh`); `mesh` alone is not used, as in
+        # the JAX package.
         self.data_parallel = data_parallel
         self.mesh = mesh
+        self._data_sharding = None
         self.logits_dtype = logits_dtype
         self.rng = np.random.default_rng(seed)
         # (direction, start, end, tracked masks) of every horizon window the
@@ -181,6 +193,45 @@ class SamPt:
     @property
     def device(self) -> torch.device:
         return self.sam_predictor.model.device
+
+    # ------------------------------------------------------------------
+    # Data parallelism over a mesh of ranks
+    # ------------------------------------------------------------------
+    def _setup_mesh(self) -> None:
+        """Wire the mesh once: round the encode and decode chunks up to
+        multiples of its `data` axis and rebuild the predictor on it."""
+        if not self.data_parallel or self._data_sharding is not None:
+            return
+        self.mesh = self.mesh if self.mesh is not None else create_mesh()
+        n = self.mesh.axis_size("data")
+        self.sam_encode_chunk = -(-self.sam_encode_chunk // n) * n
+        self.sam_decode_chunk = -(-self.sam_decode_chunk // n) * n
+        pred = self.sam_predictor
+        if pred.mesh is None:
+            self.sam_predictor = SamPredictor(pred.model,
+                                              antialias=pred.antialias,
+                                              mesh=self.mesh)
+        self._data_sharding = batch_sharding(self.mesh)
+
+    def _shard(self, x):
+        """A batch the predictor splits over the mesh's `data` axis, where
+        the JAX package places it sharded: its leading axis must be a
+        multiple of the axis size (the chunks are rounded to one), so the
+        predictor pads nothing. `x` itself (no-op without a mesh)."""
+        if self._data_sharding is not None:
+            b = (x["emb"] if isinstance(x, dict) else x).shape[0]
+            if b % self._data_sharding.size:
+                raise ValueError(f"a chunk of {b} does not split over "
+                                 f"{self._data_sharding.size} ranks")
+        return x
+
+    def _replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's `x` on every rank of the data axis: the tracker runs
+        on every rank, and its outputs drive host decisions that must
+        agree even where the ranks' devices round differently."""
+        if self._data_sharding is None:
+            return x
+        return self._data_sharding.gather(x[None])[0]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -200,6 +251,7 @@ class SamPt:
         if images.dtype != np.uint8:
             raise ValueError("input images must be uint8 (0-255)")
         t, h, w, _ = images.shape
+        self._setup_mesh()
         images_dev = torch.from_numpy(images).to(self.device)
         emb = self._encode_all_frames(images_dev)
 
@@ -311,7 +363,7 @@ class SamPt:
             pad = ec - chunk.shape[0]
             if pad:
                 chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1, -1)])
-            emb = self.sam_predictor.encode_frames(chunk, (h, w))
+            emb = self.sam_predictor.encode_frames(self._shard(chunk), (h, w))
             chunks.append(emb_map(lambda e: e[:ec - pad], emb))
         return emb_map(lambda *c: torch.cat(c, dim=0), *chunks)
 
@@ -342,7 +394,7 @@ class SamPt:
             oob, torch.full_like(visibilities,
                                  float(PointVisibilityType.OUTSIDE_FRAME)),
             visibilities)
-        return trajectories, visibilities
+        return self._replicated(trajectories), self._replicated(visibilities)
 
     def _patch_filter(self, images_dev, query_points, trajectories,
                       visibilities):
@@ -427,6 +479,9 @@ class SamPt:
         chain = chain or self._chain
         b = pts_flat.shape[0]
         chunk = min(self.sam_decode_chunk, b)
+        if self._data_sharding is not None:
+            n = self._data_sharding.size
+            chunk = min(self.sam_decode_chunk, -(-b // n) * n)
         device = pts_flat.device
         ups, ious = [], []
         for i in range(0, b, chunk):
@@ -434,8 +489,10 @@ class SamPt:
             nb = stop - i
             idx = torch.cat([torch.arange(i, stop, device=device),
                              torch.full((chunk - nb,), i, device=device)])
-            emb = emb_map(lambda e: e[emb_flat[idx]], embeddings)
-            up, iou = chain(emb, pts_flat[idx], lbl_flat[idx], hw)
+            emb = self._shard(emb_map(lambda e: e[emb_flat[idx]],
+                                      embeddings))
+            up, iou = chain(emb, self._shard(pts_flat[idx]),
+                            self._shard(lbl_flat[idx]), hw)
             ups.append(up[:nb])
             ious.append(iou[:nb])
         return torch.cat(ups, dim=0), torch.cat(ious, dim=0)

@@ -16,6 +16,12 @@
 With `use_causal_conv` the mixer's time convs pad on the left only and
 `online_step` carries each block's conv context from chunk to chunk.
 
+Time-sharded (`time_shard`, `parallel/temporal.py`; the offline model
+only): the video is this rank's block of frames; the mixer's time convs
+pad with the neighbours' frames (`ring_halo`) over the padding-zeroed
+frames, query features come from the rank that owns the query frame (a
+masked `psum`) and query frames are pinned by global frame id.
+
 Layouts are the JAX package's: videos [T, H, W, 3] in [-1, 1], feature
 grids [T, h, w, C], tracks [N, T, 2] (x, y) in 256-raster units, query
 points [N, 3] (t, y, x). Convolutions run NCHW inside. Parameter names are
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....ops.sampling import bilinear_sample, separable_neighborhood_sample
+from ....parallel.comm import psum, ring_halo
 
 TRAIN_SIZE = (256, 256)  # (height, width)
 
@@ -160,13 +167,26 @@ class PIPsConvBlock(nn.Module):
         self.mlp2_up = nn.Linear(c, 4 * c)
         self.mlp2_down = nn.Linear(4 * c, c)
 
-    def _time_conv(self, conv: nn.Conv1d, y: torch.Tensor) -> torch.Tensor:
+    def _time_conv(self, conv: nn.Conv1d, y: torch.Tensor, time_shard=None,
+                   frame_valid: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
         k = self.kernel_shape
+        if time_shard is not None:
+            # The zero "SAME" padding of the whole video: the padding
+            # frames zeroed, then the neighbours' edge frames (zeros at
+            # the video's ends) around this rank's block.
+            halo = (k - 1) // 2
+            y = y * frame_valid[:, None].to(y.dtype)
+            left, right = ring_halo(y[..., :halo, :], y[..., -halo:, :],
+                                    time_shard.group)
+            y = torch.cat([left, y, right], dim=-2)
+            return conv(y.transpose(-1, -2)).transpose(-1, -2)
         pad = (k - 1, 0) if self.use_causal_conv else ((k - 1) // 2, k // 2)
         return conv(F.pad(y.transpose(-1, -2), pad)).transpose(-1, -2)
 
     def forward(self, x, causal_context: Optional[Dict] = None,
-                get_causal_context: bool = False):
+                get_causal_context: bool = False, time_shard=None,
+                frame_valid: Optional[torch.Tensor] = None):
         k = self.kernel_shape
         new_ctx = {}
         skip = x
@@ -176,14 +196,15 @@ class PIPsConvBlock(nn.Module):
             extra = causal_context["causal_1"].shape[-2]
         if get_causal_context:
             new_ctx["causal_1"] = y[..., -(k - 1):, :]
-        y = F.gelu(self._time_conv(self.dw1, y), approximate="tanh")
+        y = F.gelu(self._time_conv(self.dw1, y, time_shard, frame_valid),
+                   approximate="tanh")
         if causal_context is not None:
             y = torch.cat([causal_context["causal_2"], y[..., extra:, :]],
                           dim=-2)
             extra = causal_context["causal_2"].shape[-2]
         if get_causal_context:
             new_ctx["causal_2"] = y[..., -(k - 1):, :]
-        y = self._time_conv(self.dw2, y)
+        y = self._time_conv(self.dw2, y, time_shard, frame_valid)
         if causal_context is not None:
             y = y[..., extra:, :]
         y = y[..., 0::4] + y[..., 1::4] + y[..., 2::4] + y[..., 3::4]
@@ -207,15 +228,16 @@ class PIPSMLPMixer(nn.Module):
         self.out_proj = nn.Linear(hidden_dim, output_channels)
 
     def forward(self, x, causal_context: Optional[List[Dict]] = None,
-                get_causal_context: bool = False):
+                get_causal_context: bool = False, time_shard=None,
+                frame_valid: Optional[torch.Tensor] = None):
         """x [N, F, C_in] -> [N, F, C_out]; with causal context (given or
         asked for), also the list of each block's new context."""
         x = self.input_proj(x)
         all_ctx = []
         for i in range(self.num_blocks):
             ctx = causal_context[i] if causal_context is not None else None
-            x, new_ctx = getattr(self, f"block_{i}")(x, ctx,
-                                                     get_causal_context)
+            x, new_ctx = getattr(self, f"block_{i}")(
+                x, ctx, get_causal_context, time_shard, frame_valid)
             all_ctx.append(new_ctx)
         out = self.out_proj(self.out_norm(x))
         if get_causal_context or causal_context is not None:
@@ -252,26 +274,39 @@ def soft_argmax_heatmap(heatmap: torch.Tensor,
     return torch.stack([x, y], dim=-1)
 
 
-def sample_query_features(grid: torch.Tensor,
-                          query_points: torch.Tensor) -> torch.Tensor:
+def sample_query_features(grid: torch.Tensor, query_points: torch.Tensor,
+                          time_shard=None) -> torch.Tensor:
     """grid [T, h, w, C]; query_points [N, 3] (t, y, x) in 256-raster
     units -> [N, C]: bilinear at the query frame (rounded to the nearest,
     half to even), the raster scaled to the grid then shifted by -0.5 to
-    cell centres, taps clamped to the border."""
+    cell centres, taps clamped to the border. Time-sharded, `grid` holds
+    this rank's frames: each query is sampled on the rank that owns its
+    frame, zero elsewhere, and summed over the ranks."""
     gh, gw = grid.shape[1], grid.shape[2]
     t_idx = torch.round(query_points[:, 0]).long()
+    if time_shard is not None:
+        t_idx = t_idx - time_shard.index * time_shard.t_local
+        owned = (t_idx >= 0) & (t_idx < grid.shape[0])
+        t_idx = t_idx.clamp(0, grid.shape[0] - 1)
     y = query_points[:, 1] * (gh / TRAIN_SIZE[0]) - 0.5
     x = query_points[:, 2] * (gw / TRAIN_SIZE[1]) - 0.5
-    return bilinear_sample(grid[t_idx], x[:, None], y[:, None],
-                           pad_mode="clamp")[:, 0]
+    q = bilinear_sample(grid[t_idx], x[:, None], y[:, None],
+                        pad_mode="clamp")[:, 0]
+    if time_shard is not None:
+        q = psum(q * owned[:, None].to(q.dtype), time_shard.group).to(q.dtype)
+    return q
 
 
-def pin_query_frames(points: torch.Tensor,
-                     query_points: torch.Tensor) -> torch.Tensor:
-    """points [N, T, 2] with each query's own frame set to its (x, y)."""
+def pin_query_frames(points: torch.Tensor, query_points: torch.Tensor,
+                     frame_ids: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """points [N, T, 2] with each query's own frame set to its (x, y);
+    `frame_ids` [T]: the frames' global ids (0..T-1 by default)."""
     t = points.shape[1]
     q_t = torch.round(query_points[:, 0]).long()
-    onehot = F.one_hot(q_t, t).to(points.dtype)
+    if frame_ids is None:
+        frame_ids = torch.arange(t, device=points.device)
+    onehot = (q_t[:, None] == frame_ids[None, :]).to(points.dtype)
     q_xy = query_points[:, [2, 1]]
     return (points * (1 - onehot)[..., None]
             + q_xy[:, None, :] * onehot[..., None])
@@ -322,14 +357,17 @@ class TAPIR(nn.Module):
             pyramid.append(F.avg_pool2d(prev, 2).permute(0, 2, 3, 1))
         return tuple(pyramid)
 
-    def get_query_features(self, hires, lowres, query_points):
-        return (sample_query_features(hires, query_points),
-                sample_query_features(lowres, query_points))
+    def get_query_features(self, hires, lowres, query_points,
+                           time_shard=None):
+        return (sample_query_features(hires, query_points, time_shard),
+                sample_query_features(lowres, query_points, time_shard))
 
-    def tracks_from_cost_volume(self, query_feats, lowres, query_points):
+    def tracks_from_cost_volume(self, query_feats, lowres, query_points,
+                                frame_ids=None):
         """query_feats [N, C]; lowres [T, h, w, C]; query_points [N, 3] or
-        None. Returns (points [N, T, 2] (x, y) raster, occlusion [N, T],
-        expected_dist [N, T]), the query frames pinned to the queries."""
+        None; frame_ids [T] the frames' global ids. Returns (points
+        [N, T, 2] (x, y) raster, occlusion [N, T], expected_dist [N, T]),
+        the query frames pinned to the queries."""
         t, h8, w8, _ = lowres.shape
         n = query_feats.shape[0]
         cost = torch.einsum("nc,thwc->tnhw", query_feats, lowres)
@@ -346,12 +384,13 @@ class TAPIR(nn.Module):
         occ = self.occlusion_out(F.relu(self.cost_volume_occlusion_2(occ)))
         occ = occ.reshape(t, n, 2)
         if query_points is not None:
-            points = pin_query_frames(points, query_points)
+            points = pin_query_frames(points, query_points, frame_ids)
         return points, occ[..., 0].T, occ[..., 1].T
 
     def refine_pips(self, query_feats, pyramid, pos_guess, occ_guess,
                     expd_guess, last_iter=None, causal_context=None,
-                    get_causal_context=False):
+                    get_causal_context=False, time_shard=None,
+                    frame_valid=None):
         """One refinement pass. query_feats (hires [N, Ch], lowres [N,
         Cl]); pyramid: grids [T, h, w, C]; pos_guess [N, T, 2] (x, y)
         raster; occ / expd [N, T]; last_iter [N, T, Ch + Cl] or None."""
@@ -389,36 +428,44 @@ class TAPIR(nn.Module):
             res, new_ctx = self.pips_mixer(mlp_input, causal_context,
                                            get_causal_context)
         else:
-            res = self.pips_mixer(mlp_input)
+            res = self.pips_mixer(mlp_input, time_shard=time_shard,
+                                  frame_valid=frame_valid)
         out = (pos_guess + res[..., :2], occ_guess + res[..., 2],
                expd_guess + res[..., 3], res[..., 4:] + feats)
         if new_ctx is not None:
             return out + (new_ctx,)
         return out
 
-    def track(self, pyramid: FeaturePyramid, query_points: torch.Tensor
-              ) -> Dict[str, torch.Tensor]:
+    def track(self, pyramid: FeaturePyramid, query_points: torch.Tensor,
+              time_shard=None) -> Dict[str, torch.Tensor]:
         """Tracks of query_points [N, 3] (t, y, x) raster through the video
         whose `feature_pyramid` is given: dict(tracks [N, T, 2] (x, y)
         raster, occlusion [N, T], expected_dist [N, T]) of the last
-        refinement pass."""
+        refinement pass. With `time_shard`, the pyramid is this rank's
+        block of frames, and so are the outputs."""
+        frame_ids = frame_valid = None
+        if time_shard is not None:
+            frame_ids = time_shard.frame_ids(query_points.device)
+            frame_valid = (frame_ids < time_shard.t_valid).float()
         q_hi, q_lo = self.get_query_features(pyramid[0], pyramid[1],
-                                             query_points)
+                                             query_points, time_shard)
         points, occlusion, expected_dist = self.tracks_from_cost_volume(
-            q_lo, pyramid[1], query_points)
+            q_lo, pyramid[1], query_points, frame_ids)
         mixer_feats = None
         for _ in range(self.num_pips_iter):
             points, occlusion, expected_dist, mixer_feats = self.refine_pips(
                 (q_hi, q_lo), pyramid, points, occlusion, expected_dist,
-                last_iter=mixer_feats)
+                last_iter=mixer_feats, time_shard=time_shard,
+                frame_valid=frame_valid)
         return {"tracks": points, "occlusion": occlusion,
                 "expected_dist": expected_dist}
 
-    def forward(self, video: torch.Tensor, query_points: torch.Tensor
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, video: torch.Tensor, query_points: torch.Tensor,
+                time_shard=None) -> Dict[str, torch.Tensor]:
         """video [T, 256, 256, 3] in [-1, 1]; query_points [N, 3] (t, y,
         x) raster -> `track`'s dict."""
-        return self.track(self.feature_pyramid(video), query_points)
+        return self.track(self.feature_pyramid(video), query_points,
+                          time_shard)
 
     def get_query_features_online(self, frames, query_points):
         """frames [F, 256, 256, 3] holding the query frames; query_points

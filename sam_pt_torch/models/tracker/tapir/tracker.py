@@ -11,8 +11,13 @@ pyramid is computed once per video tensor and kept for the next call with
 the same tensor (the orchestrator calls once per batch of masks); every
 query is tracked on its own, so the chunks need no padding.
 
+With `time_parallel`, every rank of a mesh's `data` axis (`mesh`, or a
+mesh of the whole world, made at the first call) takes its block of the
+video's frames and runs the model on it (`parallel/temporal.py`); the
+outputs are gathered along time, so every rank returns the whole tracks.
+
 `OnlineTapirPointTracker`: the causal model fed one frame at a time, the
-query features taken once from the query frame.
+query features taken once from the query frame (never sharded).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import numpy as np
 import torch
 
 from ....ops.resize import resize_bilinear
+from ....parallel.mesh import check_mesh, create_mesh
+from ....parallel.temporal import shard_frames
 from ....utils.checkpoint import load_or_randomize_, load_tapir_checkpoint
 from ..api import PointTracker
 from .model import TAPIR, TRAIN_SIZE
@@ -69,11 +76,29 @@ def load_tapir_(model: TAPIR, checkpoint_path: Optional[str], *,
                            device=device)
 
 
-def refuse_time_parallel(time_parallel: bool) -> None:
-    if time_parallel:
-        raise NotImplementedError(
-            "time_parallel (frames sharded over devices) is not ported: the "
-            "port runs one video on one device")
+def time_shard_video(tracker, video: torch.Tensor):
+    """(this rank's frames of `video` [T, ...] and its `TimeShard`) where
+    `tracker.time_parallel` is set, over the `data` axis of its `mesh`
+    (made of the whole world at the first call where None); else (video,
+    None)."""
+    if not tracker.time_parallel:
+        return video, None
+    if tracker.mesh is None:
+        tracker.mesh = create_mesh()
+    return shard_frames(video, tracker.mesh)
+
+
+def track_in_chunks(track, features, q: torch.Tensor, chunk: int,
+                    time_shard, keys) -> tuple:
+    """`track(features, queries, time_shard)` over `chunk` queries at a
+    time; each of `keys` concatenated over the chunks ([N, T, ...]), and,
+    time-sharded, gathered along time."""
+    outs = [track(features, q[i:i + chunk], time_shard)
+            for i in range(0, q.shape[0], chunk)]
+    cat = [torch.cat([o[k] for o in outs]) for k in keys]
+    if time_shard is not None:
+        cat = [time_shard.gather(x) for x in cat]
+    return tuple(cat)
 
 
 class TapirPointTracker(PointTracker):
@@ -81,36 +106,44 @@ class TapirPointTracker(PointTracker):
                  visibility_threshold: float = 0.1,
                  query_chunk_size: int = 64,
                  allow_random_init: bool = False,
-                 time_parallel: bool = False, seed: int = 0,
+                 time_parallel: bool = False, mesh=None, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
-        refuse_time_parallel(time_parallel)
         self.visibility_threshold = visibility_threshold
         self.query_chunk_size = query_chunk_size
+        check_mesh(mesh)
+        self.time_parallel = time_parallel
+        self.mesh = mesh
         self.model = TAPIR()
         load_tapir_(self.model, checkpoint_path,
                     allow_random_init=allow_random_init, seed=seed,
                     device=device)
         self.model.eval().requires_grad_(False)
 
+    def _features(self, rgbs: torch.Tensor):
+        """The video's feature pyramid (time-sharded: of this rank's
+        frames) and its `TimeShard` (None unsharded), once per video
+        tensor."""
+        def compute():
+            frames, shard = time_shard_video(self, rgbs[0])
+            return self.model.feature_pyramid(prepare_frames(frames)), shard
+
+        return self.per_video(rgbs, compute)
+
     def _pyramid(self, rgbs: torch.Tensor):
-        """The video's feature pyramid, once per video tensor."""
-        return self.per_video(rgbs, lambda: self.model.feature_pyramid(
-            prepare_frames(rgbs[0])))
+        return self._features(rgbs)[0]
 
     @torch.no_grad()
     def forward_device(self, rgbs: torch.Tensor, query_points: np.ndarray):
         if rgbs.shape[0] != 1:
             raise ValueError("TAPIR tracks one video at a time")
         t, h, w, _ = rgbs.shape[1:]
-        pyramid = self._pyramid(rgbs)
+        pyramid, shard = self._features(rgbs)
         q = torch.as_tensor(raster_queries(
             np.asarray(query_points, np.float32)[0], h, w),
             device=rgbs.device)
-        outs = [self.model.track(pyramid, q[i:i + self.query_chunk_size])
-                for i in range(0, q.shape[0], self.query_chunk_size)]
-        tracks, occ, expd = (torch.cat([o[k] for o in outs])
-                             for k in ("tracks", "occlusion",
-                                       "expected_dist"))
+        tracks, occ, expd = track_in_chunks(
+            self.model.track, pyramid, q, self.query_chunk_size, shard,
+            ("tracks", "occlusion", "expected_dist"))
         visible = (not_occluded(occ) * not_occluded(expd)
                    > self.visibility_threshold)
         return (to_frame(tracks, h, w).transpose(0, 1)[None],

@@ -11,6 +11,13 @@
   truncated to radius 5 around the argmax (TAPIR's helpers), an occlusion
   head, and the query frames pinned to the queries.
 
+Time-sharded (`time_shard`, `parallel/temporal.py`): the video is this
+rank's block of frames; the temporal shift takes the neighbours' edge
+frames (`ring_halo`), masking a padding frame as the source of the last
+real frame's backward shift; query features come from the rank that owns
+the query frame (a masked `psum`), and query frames are pinned by global
+frame id.
+
 BatchNorm is the inference form (`models/batch_norm.py`), with the
 checkpoint's moving averages. Layouts are the JAX package's: videos
 [T, H, W, 3] in [-1, 1], tracks [N, T, 2] (x, y) in 256-raster units,
@@ -22,12 +29,13 @@ files.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ....parallel.comm import ring_halo
 from ...batch_norm import InferenceBatchNorm
 from ..tapir.model import (TRAIN_SIZE, SameConv2d, convert_coords,
                            l2_normalize, pin_query_frames,
@@ -35,17 +43,31 @@ from ..tapir.model import (TRAIN_SIZE, SameConv2d, convert_coords,
                            soft_argmax_heatmap)
 
 
-def temporal_shift(x: torch.Tensor, fraction: float) -> torch.Tensor:
+def temporal_shift(x: torch.Tensor, fraction: float, time_shard=None,
+                   bwd_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """TSM over x [T, C, H, W] in the reference's rolled layout: the first
     n = int(C * fraction) output channels take the next frame's last n
     channels, the last n take the previous frame's first n (zeros past the
-    ends), the middle stays."""
+    ends), the middle stays. Time-sharded, the frames past this rank's
+    block come from its neighbours (`ring_halo`, zeros at the video's
+    ends), and `bwd_valid` [T] zeroes the backward shift where its source
+    frame is padding."""
     if fraction <= 0:
         return x
     c = x.shape[1]
     n = int(c * fraction)
-    bwd = torch.cat([x[1:, c - n:], torch.zeros_like(x[:1, c - n:])])
-    fwd = torch.cat([torch.zeros_like(x[:1, :n]), x[:-1, :n]])
+    if time_shard is None:
+        from_left = torch.zeros_like(x[:1, :n])
+        from_right = torch.zeros_like(x[:1, c - n:])
+    else:
+        # the right neighbour's first frame feeds the backward shift, the
+        # left neighbour's last frame the forward one
+        from_left, from_right = ring_halo(x[:1, c - n:], x[-1:, :n],
+                                          time_shard.group)
+    bwd = torch.cat([x[1:, c - n:], from_right])
+    if bwd_valid is not None:
+        bwd = bwd * bwd_valid[:, None, None, None].to(bwd.dtype)
+    fwd = torch.cat([from_left, x[:-1, :n]])
     return torch.cat([bwd, x[:, n:c - n], fwd], dim=1)
 
 
@@ -69,11 +91,12 @@ class TSMBasicBlockV2(nn.Module):
         self.conv_2 = SameConv2d(output_channels, output_channels, 3,
                                  bias=False)
 
-    def forward(self, x):
+    def forward(self, x, time_shard=None, bwd_valid=None):
         preact = F.relu(self.bn_pre(x))
         shortcut = (x if self.shortcut_conv is None
                     else self.shortcut_conv(preact))
-        y = self.conv_0(temporal_shift(preact, self.shift_fraction))
+        y = self.conv_0(temporal_shift(preact, self.shift_fraction,
+                                       time_shard, bwd_valid))
         y = self.conv_2(F.relu(self.bn_1(y)))
         return y + shortcut
 
@@ -100,11 +123,11 @@ class TSMResNetV2(nn.Module):
                 self.names.append(name)
                 in_ch = ch
 
-    def forward(self, x):
+    def forward(self, x, time_shard=None, bwd_valid=None):
         x = self.initial_conv(x)
         x = F.max_pool2d(same_pad(x, 3, 2, value=float("-inf")), 3, 2)
         for name in self.names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, time_shard, bwd_valid)
         return x
 
 
@@ -120,21 +143,28 @@ class TAPNet(nn.Module):
         self.cost_volume_occlusion_2 = nn.Linear(32, 16)
         self.occlusion_out = nn.Linear(16, 1)
 
-    def get_feature_grid(self, video: torch.Tensor) -> torch.Tensor:
+    def get_feature_grid(self, video: torch.Tensor, time_shard=None
+                         ) -> torch.Tensor:
         """video [T, 256, 256, 3] in [-1, 1] -> [T, 32, 32, 256],
-        L2-normalised over channels."""
-        out = self.tsm_resnet(video.permute(0, 3, 1, 2))
+        L2-normalised over channels (time-sharded: this rank's frames)."""
+        bwd_valid = None
+        if time_shard is not None:
+            ids = time_shard.frame_ids(video.device)
+            bwd_valid = (ids < time_shard.t_valid - 1).float()
+        out = self.tsm_resnet(video.permute(0, 3, 1, 2), time_shard,
+                              bwd_valid)
         return l2_normalize(out.permute(0, 2, 3, 1))
 
-    def track(self, grid: torch.Tensor, query_points: torch.Tensor
-              ) -> Dict[str, torch.Tensor]:
+    def track(self, grid: torch.Tensor, query_points: torch.Tensor,
+              time_shard=None) -> Dict[str, torch.Tensor]:
         """Tracks of query_points [N, 3] (t, y, x) raster through the video
         whose `get_feature_grid` is `grid`: dict(tracks [N, T, 2] (x, y)
-        raster, occlusion [N, T])."""
+        raster, occlusion [N, T]) (time-sharded: over this rank's
+        frames)."""
         t, gh, gw, c = grid.shape
         n = query_points.shape[0]
         d = self.num_heads
-        q_feats = sample_query_features(grid, query_points)
+        q_feats = sample_query_features(grid, query_points, time_shard)
         cost = torch.einsum("ncd,thwcd->tnhwd", q_feats.reshape(n, c // d, d),
                             grid.reshape(t, gh, gw, c // d, d))
         hid = F.relu(self.cost_volume_regression_1(
@@ -148,11 +178,14 @@ class TAPNet(nn.Module):
                                 (TRAIN_SIZE[1], TRAIN_SIZE[0]))
         occ = self.cost_volume_occlusion_1(hid).mean((-2, -1))
         occ = self.occlusion_out(F.relu(self.cost_volume_occlusion_2(occ)))
-        return {"tracks": pin_query_frames(points, query_points),
+        frame_ids = (None if time_shard is None
+                     else time_shard.frame_ids(grid.device))
+        return {"tracks": pin_query_frames(points, query_points, frame_ids),
                 "occlusion": occ.reshape(t, n).T}
 
-    def forward(self, video: torch.Tensor, query_points: torch.Tensor
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, video: torch.Tensor, query_points: torch.Tensor,
+                time_shard=None) -> Dict[str, torch.Tensor]:
         """video [T, 256, 256, 3] in [-1, 1]; query_points [N, 3] (t, y,
         x) raster -> `track`'s dict."""
-        return self.track(self.get_feature_grid(video), query_points)
+        return self.track(self.get_feature_grid(video, time_shard),
+                          query_points, time_shard)

@@ -3,7 +3,8 @@
 and query conversion, `query_chunk_size` (16) queries at a time, a point
 visible where 1 - sigmoid(occlusion) exceeds `visibility_threshold` (0.5).
 The feature grid is computed once per video tensor and kept for the next
-call with the same tensor.
+call with the same tensor. `time_parallel` splits the video's frames over
+a mesh's `data` axis, as TAPIR's tracker does.
 """
 from __future__ import annotations
 
@@ -13,11 +14,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ....parallel.mesh import check_mesh
 from ....utils.checkpoint import load_or_randomize_, load_tapnet_checkpoint
 from ...batch_norm import reset_batch_norm_stats_
 from ..api import PointTracker
 from ..tapir.tracker import (not_occluded, prepare_frames, raster_queries,
-                             refuse_time_parallel, to_frame)
+                             time_shard_video, to_frame, track_in_chunks)
 from .model import TAPNet
 
 
@@ -26,9 +28,11 @@ class TapNetPointTracker(PointTracker):
                  visibility_threshold: float = 0.5,
                  query_chunk_size: int = 16,
                  allow_random_init: bool = False,
-                 time_parallel: bool = False, seed: int = 0,
+                 time_parallel: bool = False, mesh=None, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
-        refuse_time_parallel(time_parallel)
+        check_mesh(mesh)
+        self.time_parallel = time_parallel
+        self.mesh = mesh
         self.visibility_threshold = visibility_threshold
         self.query_chunk_size = query_chunk_size
         self.model = TAPNet()
@@ -40,24 +44,31 @@ class TapNetPointTracker(PointTracker):
             reset_batch_norm_stats_(self.model)
         self.model.eval().requires_grad_(False)
 
+    def _features(self, rgbs: torch.Tensor):
+        """The video's feature grid (time-sharded: of this rank's frames)
+        and its `TimeShard` (None unsharded), once per video tensor."""
+        def compute():
+            frames, shard = time_shard_video(self, rgbs[0])
+            return (self.model.get_feature_grid(prepare_frames(frames),
+                                                shard), shard)
+
+        return self.per_video(rgbs, compute)
+
     def _grid(self, rgbs: torch.Tensor) -> torch.Tensor:
-        """The video's feature grid, once per video tensor."""
-        return self.per_video(rgbs, lambda: self.model.get_feature_grid(
-            prepare_frames(rgbs[0])))
+        return self._features(rgbs)[0]
 
     @torch.no_grad()
     def forward_device(self, rgbs: torch.Tensor, query_points: np.ndarray):
         if rgbs.shape[0] != 1:
             raise ValueError("TapNet tracks one video at a time")
         t, h, w, _ = rgbs.shape[1:]
-        grid = self._grid(rgbs)
+        grid, shard = self._features(rgbs)
         q = torch.as_tensor(raster_queries(
             np.asarray(query_points, np.float32)[0], h, w),
             device=rgbs.device)
-        outs = [self.model.track(grid, q[i:i + self.query_chunk_size])
-                for i in range(0, q.shape[0], self.query_chunk_size)]
-        tracks = torch.cat([o["tracks"] for o in outs])
-        occ = torch.cat([o["occlusion"] for o in outs])
+        tracks, occ = track_in_chunks(self.model.track, grid, q,
+                                      self.query_chunk_size, shard,
+                                      ("tracks", "occlusion"))
         visible = not_occluded(occ) > self.visibility_threshold
         return (to_frame(tracks, h, w).transpose(0, 1)[None],
                 visible.T.float()[None])

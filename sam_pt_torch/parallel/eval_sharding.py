@@ -1,10 +1,11 @@
 """Evaluation sharding over processes (counterpart of
 `sam_pt_tpu/parallel/eval_sharding.py`).
 
-In one process both functions are the identity. Sharding videos over
-several GPUs (`torch.distributed` with a world size above 1) is not ported
-yet (ROADMAP §1 item 8): both raise rather than return one process's part
-of the results as if it were the whole.
+Each process of a `torch.distributed` world (`torchrun`, one rank per
+card, or several ranks sharing one card over gloo) takes a strided slice
+of the video list, runs it on its device, and the records are gathered to
+every process, where rank 0 writes and scores them. Outside a process
+group (or in a world of one) both functions are the identity.
 """
 from __future__ import annotations
 
@@ -12,35 +13,39 @@ from typing import Any, List, Sequence
 
 import torch.distributed as dist
 
+from .comm import group_rank, group_size
+
 
 def world_size() -> int:
     """Processes of the initialised `torch.distributed` group, else 1."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    return group_size()
 
 
 def rank() -> int:
     """This process's rank in the initialised group, else 0."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
-
-
-def _single_process(what: str) -> None:
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"{what} over {world_size()} processes: multi-GPU VIS is not "
-            f"ported yet (ROADMAP §1 item 8)")
+    return group_rank()
 
 
 def shard_videos_across_hosts(items: Sequence[Any]) -> List[Any]:
-    """This process's part of the work list: all of it."""
-    _single_process("sharding the videos")
-    return list(items)
+    """This process's strided slice of the work list: items[rank::world]."""
+    return list(items)[rank()::world_size()]
 
 
 def gather_host_results(records: List[Any]) -> List[Any]:
-    """Every process's records: this one's."""
-    _single_process("gathering the records")
-    return list(records)
+    """Every process's records, in rank order, on every process.
+
+    Pickled over `dist.all_gather_object` on a CPU (gloo) group, which
+    takes payloads of unequal sizes: the default group where it is gloo,
+    else a gloo group made for the call (every rank calls this)."""
+    if world_size() == 1:
+        return list(records)
+    group = None
+    if dist.get_backend() != "gloo":
+        group = dist.new_group(backend="gloo")
+    gathered: List[Any] = [None] * world_size()
+    try:
+        dist.all_gather_object(gathered, list(records), group=group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group(group)
+    return [r for part in gathered for r in part]

@@ -9,6 +9,11 @@ JAX package.
 
 Run:  python -m sam_pt_torch.vis_eval.eval dataset=uvo_v1_val_tiny
       [data_root=...] [device=cpu]
+
+Over several processes (one rank a card over NCCL, or ranks sharing one
+card with `+dist_backend=gloo`), each rank evaluates its strided slice of
+the videos and rank 0 gathers, writes and scores:
+      torchrun --nproc-per-node 2 -m sam_pt_torch.vis_eval.eval ...
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from ..parallel.eval_sharding import (
     rank,
     shard_videos_across_hosts,
 )
+from ..parallel.mesh import join_launched_world
 from ..utils.util import seed_all
 from .datasets import VISDataset, resolve_dataset
 from .rle import encode_mask
@@ -112,6 +118,8 @@ def main():
     overrides = [a for a in sys.argv[1:] if "=" in a]
     cfg = compose(CONFIG_DIR, "vis_eval_root", overrides)
     cfg = resolve_interpolations(cfg)
+    join_launched_world(cfg.get("dist_backend", "nccl"),
+                        cfg.get("device", "cuda"))
     return evaluate(cfg)
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import compose, instantiate, resolve_interpolations
+from ..parallel.mesh import join_launched_world
 from ..utils.util import seed_all
 from .data.image_io import write_png
 from .data.mask_mapper import MaskMapper
@@ -646,9 +647,21 @@ def evaluate(cfg) -> Dict:
 
 
 def main():
+    """The CLI. Under `torchrun` it joins the group first over NCCL, one
+    rank a card (`+dist_backend=gloo` for ranks that share a card or run
+    on the CPU): `model.data_parallel=true` splits
+    SAM's batches and `model.point_tracker.time_parallel=true` a video's
+    frames over the ranks, which all evaluate every video; rank r > 0
+    writes under `<output>_rank<r>`, so no two ranks write one file."""
     overrides = [a for a in sys.argv[1:] if "=" in a]
     cfg = compose(CONFIG_DIR, "vos_eval_root", overrides)
     cfg = resolve_interpolations(cfg)
+    if join_launched_world(cfg.get("dist_backend", "nccl"),
+                           cfg.get("device", "cuda")):
+        rank = torch.distributed.get_rank()
+        if rank:
+            cfg = copy.copy(cfg)
+            cfg["output"] = f"{cfg['output']}_rank{rank}"
     return evaluate(cfg)
 
 

@@ -82,6 +82,12 @@ SLICE_MODULES = [
     "sam_pt_torch.vos_eval.data.test_datasets",
     "sam_pt_torch.demo",
     "sam_pt_torch.models.sam.auto_mask_generator",
+    "sam_pt_torch.parallel",
+    "sam_pt_torch.parallel.comm",
+    "sam_pt_torch.parallel.mesh",
+    "sam_pt_torch.parallel.launch",
+    "sam_pt_torch.parallel.tensor_parallel",
+    "sam_pt_torch.parallel.temporal",
     "sam_pt_torch.parallel.eval_sharding",
     "sam_pt_torch.vis_eval.rle",
     "sam_pt_torch.vis_eval.ytvos_eval",

@@ -1,8 +1,10 @@
 """The port's `SamPt` constructor and input contract against the JAX one's.
 
 - Every key of `configs/model/sam_pt.yaml` (bar `defaults` and `_target_`)
-  is a keyword of the port's `SamPt`, as of the JAX one; data parallelism
-  raises until the multi-device layer is ported.
+  is a keyword of the port's `SamPt`, as of the JAX one.
+- `data_parallel=True` in one process is a world of one: its forward
+  equals the unsharded one bit for bit; a `mesh` that is not a
+  `parallel.mesh.Mesh` raises TypeError.
 - `forward` takes frames as [T, H, W, 3] or [T, 3, H, W], as the JAX
   `forward` does: one tiny video given both ways gives identical outputs
   (the query-point sampler is reseeded between the two calls).
@@ -47,14 +49,29 @@ def test_sam_pt_from_model_config(port_sam_pt):
     assert sam_pt.upload_chunk is None
 
 
-@pytest.mark.parametrize("parallel", [dict(data_parallel=True),
-                                      dict(mesh=object())])
-def test_data_parallel_raises(port_sam_pt, parallel):
+def test_data_parallel_in_one_process_equals_unsharded(port_sam_pt):
+    from sam_pt_torch.models.sam_pt import SamPt
+    from torch_port_helpers import TINY_SAM_PT_SETTINGS, sam_pt_video
+
+    video = sam_pt_video()
+    outs = []
+    for parallel in (False, True):
+        sam_pt = SamPt(port_sam_pt.point_tracker, port_sam_pt.sam_predictor,
+                       data_parallel=parallel, **TINY_SAM_PT_SETTINGS)
+        outs.append(sam_pt.forward(video))
+    assert sam_pt.mesh.size == 1 and sam_pt.sam_predictor.mesh is sam_pt.mesh
+    for key, value in outs[0].items():
+        np.testing.assert_array_equal(outs[1][key].numpy(), value.numpy(),
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("mesh", [object(), "data"])
+def test_a_mesh_that_is_not_a_mesh_raises(port_sam_pt, mesh):
     from sam_pt_torch.models.sam_pt import SamPt
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         SamPt(port_sam_pt.point_tracker, port_sam_pt.sam_predictor,
-              **parallel)
+              data_parallel=True, mesh=mesh)
 
 
 def test_nchw_frames_match_nhwc(port_sam_pt):

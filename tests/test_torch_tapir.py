@@ -340,12 +340,24 @@ def test_build_sam_pt_with_the_tracker(name):
 
 
 @pytest.mark.parametrize("name", ["tapir", "tapnet"])
-def test_time_parallel_is_not_ported(name):
+def test_time_parallel_builds_and_tracks(name):
+    """`time_parallel=True` in one process: the frames split over a world
+    of one (the sharded code path, its halos zero, its psums the
+    identity) track as the unsharded tracker does, bit for bit."""
     from sam_pt_torch.models.tracker import TRACKER_REGISTRY
 
-    with pytest.raises(NotImplementedError, match="time_parallel"):
-        TRACKER_REGISTRY[name](allow_random_init=True, time_parallel=True,
-                               device="cpu")
+    rgbs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 255, (1, 3, 32, 40, 3)).astype(np.uint8))
+    q = np.array([[[0, 10.0, 12.0], [2, 30.0, 20.0]]], np.float32)
+    outs = []
+    for parallel in (False, True):
+        tracker = TRACKER_REGISTRY[name](allow_random_init=True,
+                                         time_parallel=parallel, seed=5,
+                                         device="cpu")
+        outs.append(tracker.forward(rgbs, q))
+    assert tracker.time_parallel and tracker.mesh.size == 1
+    for got, ref in zip(outs[1], outs[0]):
+        np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("name", ["tapir", "tapnet"])

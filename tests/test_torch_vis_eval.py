@@ -16,8 +16,12 @@ settings of `test_torch_auto_mask_generator.py`.
   Pillow and PyYAML blocked: it exits 0, writes and scores the results.
 - The composed port config builds one predictor shared by the generator
   and SamPt.
-- `eval_sharding` is the identity in one process and raises with a world
-  size above 1.
+- `eval_sharding` is the identity in one process (worlds of several
+  processes: tests/test_torch_parallel.py); `evaluate` in a gloo world
+  of 2 CPU ranks gives each rank its strided slice of the videos, and
+  rank 0 alone writes `results.json` and scores: its records are, video
+  for video, those of one process evaluating that video from a fresh
+  start.
 """
 import json
 import os
@@ -237,18 +241,46 @@ def test_composed_config_shares_one_predictor(name):
         "PipsPointTracker")
 
 
-def test_eval_sharding_is_one_process_only(monkeypatch):
+def test_evaluate_over_two_processes(tmp_path):
+    from torch_parallel_worlds import cpu_world, vis_evaluate_rank
+
+    gt = _write_tree(tmp_path)
+    only_second = dict(gt, videos=gt["videos"][1:],
+                       annotations=gt["annotations"][1:])
+    with open(tmp_path / "second.json", "w") as f:
+        json.dump(only_second, f)
+    frames = str(tmp_path / "frames")
+    cfg = {"seed": 72, "score": True, "max_videos": None}
+    _, adapter = _adapters()
+    ranks = cpu_world(2, vis_evaluate_rank, adapter,
+                      ("two_uvo", str(tmp_path / "gt.json"), frames, True),
+                      dict(cfg, dataset="two_uvo",
+                           output=str(tmp_path / "world")))
+    assert "AP" in ranks[0] and "AP" not in ranks[1]
+    with open(tmp_path / "world" / "results.json") as f:
+        got = json.load(f)
+    want = []
+    for name, json_file in (("first_uvo", "gt.json"),
+                            ("second_uvo", "second.json")):
+        tdatasets.register_dataset(name, str(tmp_path / json_file), frames,
+                                   True)
+        _, adapter = _adapters()
+        out = str(tmp_path / name)
+        tevaluate(dict(cfg, dataset=name, output=out, model=adapter,
+                       max_videos=1))
+        with open(os.path.join(out, "results.json")) as f:
+            want.extend(json.load(f))
+    assert ranks[0]["n_records"] == ranks[1]["n_records"] == len(got)
+    assert got == want and {r["video_id"] for r in got} == {1, 2}
+
+
+def test_eval_sharding_is_the_identity_in_one_process():
     from sam_pt_torch.parallel import eval_sharding
 
     items = [{"id": 1}, {"id": 2}]
     assert eval_sharding.shard_videos_across_hosts(items) == items
     assert eval_sharding.gather_host_results(items) == items
-    assert eval_sharding.rank() == 0
-    monkeypatch.setattr(eval_sharding, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_sharding.shard_videos_across_hosts(items)
-    with pytest.raises(NotImplementedError, match="multi-GPU VIS"):
-        eval_sharding.gather_host_results(items)
+    assert (eval_sharding.rank(), eval_sharding.world_size()) == (0, 1)
 
 
 def test_decoder_self_attention_of_100_masks_takes_k3(monkeypatch):

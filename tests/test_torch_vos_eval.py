@@ -18,6 +18,11 @@ package's, on synthetic DAVIS, YouTube-VOS, MOSE and BDD100K trees.
   the visualisations, and the two options of `SamPtInteractive`'s slice
   (held to the JAX CLI in test_torch_interactive_cli.py); the printed
   tables against pandas'.
+- The CLI under `torchrun` (2 gloo ranks on the CPU) with the tiny SAM,
+  TapNet, `model.data_parallel=true` and
+  `model.point_tracker.time_parallel=true`: both ranks exit 0 and write
+  the same masks (rank 1 under `<output>_rank1`), which agree with one
+  process's run on at least 99.9% of a video's pixels.
 """
 import csv
 import json
@@ -391,3 +396,42 @@ def test_softmax_fuse_matches_jax():
     x = np.random.default_rng(7).standard_normal((3, 4, 5, 6)) * 5
     np.testing.assert_allclose(t_eval.softmax_fuse(x), j_eval.softmax_fuse(x),
                                rtol=0, atol=0)
+
+
+def test_cli_under_torchrun_with_data_and_time_parallel(davis, tmp_path):
+    import socket
+    import subprocess
+    import sys
+
+    root, names = davis
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    args = ["-m", "sam_pt_torch.vos_eval.eval", "dataset=D17",
+            f"d17_path={root}", "device=cpu", "size=-1",
+            "model/sam@model.sam_predictor=sam_tiny_test",
+            "model/point_tracker=tapnet",
+            "model.point_tracker.allow_random_init=true",
+            "visualize_results=false", "make_zip=false", "score=false"]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=path.dirname(path.dirname(path.abspath(__file__))))
+    runs = {"world": [sys.executable, "-m", "torch.distributed.run",
+                      "--nproc-per-node", "2", "--master-port", str(port),
+                      *args, "+dist_backend=gloo",
+                      "model.data_parallel=true",
+                      "model.point_tracker.time_parallel=true",
+                      f"output={tmp_path / 'world'}"],
+            "one": [sys.executable, *args, f"output={tmp_path / 'one'}"]}
+    for name, cmd in runs.items():
+        proc = subprocess.run(cmd, cwd=str(tmp_path), env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, (name, proc.stderr[-3000:])
+    for name in names:
+        world = _index_masks(tmp_path / "world" / name)
+        assert world and all(np.array_equal(world[f], m) for f, m in
+                             _index_masks(tmp_path / "world_rank1" / name)
+                             .items())
+        one = _index_masks(tmp_path / "one" / name)
+        assert list(world) == list(one)
+        same = np.mean([np.mean(world[f] == one[f]) for f in one])
+        assert same >= AGREEMENT, (name, same)

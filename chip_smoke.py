@@ -21,6 +21,12 @@ Phases, in order; any failure exits non-zero before the verdict line:
      with the host's time a call to queue them) and, with --profile, by
      the profiler's device time (`profiled_ms`), beside the kernel's bound
      (`attention_roofline`).
+  3b. Helpers phase: the JAX package's last public helpers on the card:
+     `evaluate_batch` / `unpack_results` of the main path's CoTracker
+     (8 frames of 480 x 854, 16 points; bit-equal to `forward`, one
+     record a point), `encode_boxes` (bf16 weights) within 2^-14 +
+     2^-14 |ref| of the CPU's, `resize_nearest` and
+     `grid_sample_nearest` equal to the CPU's; one `helpers:` line.
   4. Slice phase: the port's SamPt (SAM ViT-H + CoTracker, random bf16
      weights from a seeded generator, two output biases set so that points
      are visible and masks pass the IoU gate) over two DAVIS-shaped 480 x 854
@@ -177,7 +183,9 @@ Phases, in order; any failure exits non-zero before the verdict line:
      1e-3, every rank's outputs bit-equal, K1/K2/K3 launches a rank as
      its schedule), SAM ViT-H tensor-parallel over a model axis of 2
      encoding 4 frames (8 local heads: K1 28 and K2 4 launches a rank;
-     embeddings within rel. L2 1e-2 of the unsharded encode), and TapNet
+     embeddings within rel. L2 1e-2 of the unsharded encode; the MLP's
+     `psum` in the working dtype, bf16, the attention's in float32, each
+     logged with its calls and bytes a rank per encode), and TapNet
      and TAPIR at their YAML widths time-sharded over 23 frames of 256 x
      256 (TF32 off: tracks within 1e-3 px and logits within 1e-4 of the
      unsharded run); a world of 4 (gloo): the TP encode on a 2 x 2 data x
@@ -768,6 +776,122 @@ def measure_cases(cases: dict, profiling: bool = False) -> dict:
         del kernel, plain, library, inputs, got, ref, diff
         torch.cuda.empty_cache()
     return report
+
+
+HELPER_FRAMES = 8  # the helpers phase's CoTracker video: 8 x 480 x 854
+HELPER_QUERIES = 16
+# `encode_boxes` card vs CPU: the box embeddings are float32 (the bf16
+# weights are cast up; TF32 is off for the call), sin and cos of
+# arguments up to ~40 rad, where a float32 ulp is 3.8e-6. A few ulps of
+# argument, plus as much relative (an H100 read 1.19e-7: PERF.md).
+BOX_ATOL = BOX_RTOL = 2 ** -14
+
+
+def build_main_cotracker(device):
+    """The main path's CoTracker tracker (`build.build_sam_pt`'s: stride
+    4, window 8, 384 x 512, bf16), random weights from a generator on the
+    device seeded 0."""
+    from sam_pt_torch.models.tracker.cotracker.model import CoTracker
+    from sam_pt_torch.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker,
+    )
+    from sam_pt_torch.utils.checkpoint import randomize_
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    model = randomize_(CoTracker(s=8, stride=4).to(device), generator)
+    return CoTrackerPointTracker(
+        interp_shape=(384, 512), support_grid_size=2,
+        support_grid_every_n_frames=12, iters=6,
+        model=model.to(torch.bfloat16).eval().requires_grad_(False))
+
+
+def helpers_phase(device, card: str) -> None:
+    """Phase 3b: the JAX package's last public helpers in the port, on the
+    card. `CoTrackerPointTracker.evaluate_batch` over HELPER_FRAMES frames
+    of 480 x 854 and HELPER_QUERIES points (packed trajectories and
+    visibilities bit-equal to `forward`'s on the same video tensor,
+    `unpack_results` one record a point); `PromptEncoder.encode_boxes`
+    (bf16 weights, SAM's 1024 input, the PE matrix N(0, 1); float32
+    out) within BOX_ATOL + BOX_RTOL |ref| of the same call on the CPU; `resize_nearest` (decoder
+    logits 4 x 256 x 256 to 480 x 854 in float32, an index mask 480 x
+    854 to 240 x 427 in uint8) and `grid_sample_nearest` (a uint8 frame
+    at 8 x 16 points, out-of-range ones too) equal to the CPU's."""
+    from sam_pt_torch.models.sam.prompt_encoder import PromptEncoder
+    from sam_pt_torch.ops import grid_sample_nearest, resize_nearest
+    from sam_pt_torch.utils.checkpoint import randomize_
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    tracker = build_main_cotracker(device)
+    video = torch.from_numpy(rng.integers(
+        0, 255, (1, HELPER_FRAMES, H, W, 3)).astype(np.uint8)).to(device)
+    qp = np.stack([rng.integers(0, HELPER_FRAMES, HELPER_QUERIES),
+                   rng.uniform(0, W - 1, HELPER_QUERIES),
+                   rng.uniform(0, H - 1, HELPER_QUERIES)], -1)[None].astype(
+                       np.float32)
+    traj, vis = tracker.forward(video, qp)
+    packed = tracker.evaluate_batch(video, qp)
+    rows = type(tracker).unpack_results(packed, batch_idx=0)
+    if not (np.array_equal(packed["trajectories_pred"], traj)
+            and np.array_equal(packed["visibilities_pred"], vis)
+            and traj.shape == (1, HELPER_FRAMES, HELPER_QUERIES, 2)
+            and len(rows) == HELPER_QUERIES):
+        raise SystemExit("helpers: evaluate_batch differs from forward or "
+                         "unpack_results from one record a point")
+    t_track = time.perf_counter() - t0
+
+    g = torch.Generator().manual_seed(16)
+    encoder = randomize_(PromptEncoder(), g).requires_grad_(False)
+    encoder.pe_layer.positional_encoding_gaussian_matrix.normal_(generator=g)
+    encoder = encoder.to(torch.bfloat16)
+    boxes = np.sort(rng.uniform(0, 1024, (32, 2, 2)), axis=1).reshape(
+        32, 4).astype(np.float32)
+    with no_tf32():
+        ref = encoder.encode_boxes(boxes)
+        got = encoder.to(device).encode_boxes(boxes)
+    box_err = (got.cpu() - ref).abs()
+    boxes_ok = bool(got.dtype == ref.dtype == torch.float32
+                    and (box_err <= BOX_ATOL + BOX_RTOL * ref.abs()).all())
+
+    logits = torch.from_numpy(rng.standard_normal((4, 256, 256, 1)).astype(
+        np.float32))
+    mask = torch.from_numpy(rng.integers(0, 4, (H, W)).astype(np.uint8))
+    frame = torch.from_numpy(rng.integers(0, 255, (H, W, 3)).astype(
+        np.uint8))
+    xs = torch.from_numpy(rng.uniform(-20, W + 20, (8, 16)).astype(
+        np.float32))
+    ys = torch.from_numpy(rng.uniform(-20, H + 20, (8, 16)).astype(
+        np.float32))
+    nearest = {
+        "resize_nearest logits": (resize_nearest, (logits, (H, W))),
+        "resize_nearest mask": (resize_nearest, (mask, (H // 2, W // 2)),
+                                dict(h_axis=0, w_axis=1)),
+        "grid_sample_nearest": (grid_sample_nearest, (frame, xs, ys)),
+    }
+    exact = {}
+    for name, (fn, args, *kw) in nearest.items():
+        kw = kw[0] if kw else {}
+        cpu = fn(*args, **kw)
+        card_out = fn(*[a.to(device) if isinstance(a, torch.Tensor) else a
+                        for a in args], **kw)
+        exact[name] = (card_out.dtype == cpu.dtype
+                       and torch.equal(card_out.cpu(), cpu))
+    torch.cuda.synchronize()
+    log(f"helpers: evaluate_batch of the main path's CoTracker over "
+        f"{HELPER_FRAMES} x {H} x {W}, {HELPER_QUERIES} points: packed "
+        f"outputs bit-equal to forward's, {len(rows)} records "
+        f"({t_track:.1f} s); encode_boxes of 32 boxes within "
+        f"{float(box_err.max()):.2e} of the CPU's "
+        f"({'OK' if boxes_ok else 'FAIL'} at {BOX_ATOL:g} + {BOX_RTOL:g} "
+        f"|ref|); "
+        + ", ".join(f"{k} {'equal' if v else 'DIFFERENT'}"
+                    for k, v in exact.items())
+        + f" to the CPU's; the phase took {time.perf_counter() - t0:.1f} s "
+          f"on {card}")
+    if not boxes_ok or not all(exact.values()):
+        raise SystemExit("helpers: a card result differs from the CPU's")
+    del tracker, video
+    torch.cuda.empty_cache()
 
 
 def make_video(n_frames: int, n_masks: int, seed: int,
@@ -3551,7 +3675,8 @@ def tp_job(device, build, schedule, frames, n_model, n_data):
     pred = SamPredictor(sam, mesh=create_tp_mesh(n_model, n_data))
     images = torch.from_numpy(frames).to(device)
     hw = tuple(frames.shape[1:3])
-    pred.encode_frames(images, hw)  # warm-up
+    with recorded_psums() as psums:
+        pred.encode_frames(images, hw)  # warm-up
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     sync()
@@ -3562,9 +3687,48 @@ def tp_job(device, build, schedule, frames, n_model, n_data):
     wall = time.perf_counter() - t0
     encoder = sam.image_encoder
     return {"launches": dict(fa.LAUNCHES), "expected": schedule(encoder),
+            "psums": psums, "dtype": str(sam.dtype),
             "local_heads": encoder.blocks[0].attn.num_heads,
             "emb": emb.float().cpu().numpy() if group_rank() == 0 else None,
             "digest": digest(emb), "wall": wall}
+
+
+@contextlib.contextmanager
+def recorded_psums():
+    """Within the block, every `psum` of `parallel/tensor_parallel.py`
+    is recorded under the TP sublayer it runs in, `tp_mlp` or
+    `tp_shardmap_attention` (each wrapped for the block; "outside" for a
+    `psum` in neither): {sublayer: {"dtype", "calls", "bytes"}}."""
+    from sam_pt_torch.parallel import tensor_parallel
+
+    found, within = {}, ["outside"]
+    saved = {name: getattr(tensor_parallel, name)
+             for name in ("psum", "tp_mlp", "tp_shardmap_attention")}
+
+    def recording(x, group=None):
+        entry = found.setdefault(within[-1], {"dtype": str(x.dtype),
+                                              "calls": 0, "bytes": 0})
+        entry["calls"] += 1
+        entry["bytes"] += x.numel() * x.element_size()
+        return saved["psum"](x, group)
+
+    def labelled(name):
+        def sublayer(*args, **kwargs):
+            within.append(name)
+            try:
+                return saved[name](*args, **kwargs)
+            finally:
+                within.pop()
+        return sublayer
+
+    tensor_parallel.psum = recording
+    for name in ("tp_mlp", "tp_shardmap_attention"):
+        setattr(tensor_parallel, name, labelled(name))
+    try:
+        yield found
+    finally:
+        for name, fn in saved.items():
+            setattr(tensor_parallel, name, fn)
 
 
 def time_job(device, build, video, query_points):
@@ -3664,6 +3828,19 @@ def check_tp(label: str, ranks, reference: np.ndarray, heads: int) -> dict:
         if res["local_heads"] != heads or res["digest"] != first["digest"]:
             raise SystemExit(f"{label}: rank {r} has {res['local_heads']} "
                              f"heads or outputs unlike rank 0's")
+    mlp, attn = (first["psums"].get(k, {}) for k in (
+        "tp_mlp", "tp_shardmap_attention"))
+    log(f"{label}: the MLP's psum {mlp.get('dtype')}, {mlp.get('calls')} "
+        f"calls, {mlp.get('bytes', 0) / 1e6:.1f} MB a rank per encode; the "
+        f"attention's {attn.get('dtype')}, {attn.get('calls')} calls, "
+        f"{attn.get('bytes', 0) / 1e6:.1f} MB (working dtype "
+        f"{first['dtype']})")
+    if not mlp or not attn:
+        raise SystemExit(f"{label}: no psum recorded in the MLP or in the "
+                         f"attention sublayer: {first['psums']}")
+    if (mlp["dtype"], attn["dtype"]) != (first["dtype"], "torch.float32"):
+        raise SystemExit(f"{label}: the MLP's psum is not in the working "
+                         f"dtype or the attention's not in float32")
     err = rel_l2(torch.from_numpy(first["emb"]), torch.from_numpy(reference))
     log(f"{label}: embeddings rel. L2 {err:.3e} from the unsharded encode "
         f"(< {TP_REL_L2:g}), {heads} local heads, K1 "
@@ -4171,6 +4348,7 @@ def main() -> int:
     build_phase()
     device = torch.device("cuda")
     report = kernel_phase(fa, device, profiling)
+    helpers_phase(device, card)
 
     from sam_pt_torch.build import build_sam_pt
     from sam_pt_torch.vos_eval.eval import device_fuse_index_masks

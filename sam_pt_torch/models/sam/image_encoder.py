@@ -350,3 +350,12 @@ class ImageEncoderViT(nn.Module):
         if return_interm:
             return x, interm
         return x
+
+
+def build_image_encoder(variant: str, dtype: torch.dtype = torch.float32,
+                        device="cuda", **kw) -> ImageEncoderViT:
+    """The ViT encoder of `variant` (`VIT_VARIANTS`), its arguments
+    overridden by `kw`, in `dtype` on `device`."""
+    cfg = dict(VIT_VARIANTS[variant])
+    cfg.update(kw)
+    return ImageEncoderViT(**cfg).to(device=device, dtype=dtype)

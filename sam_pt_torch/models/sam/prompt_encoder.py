@@ -79,6 +79,17 @@ class PromptEncoder(nn.Module):
         pe = torch.where((labels == -1)[..., None], torch.zeros_like(pe), pe)
         return pe + table[labels.long() + 1]
 
+    def encode_boxes(self, boxes) -> torch.Tensor:
+        """boxes [B, 4] (x1, y1, x2, y2) in model-input pixels, numpy or a
+        tensor -> corner embeddings [B, 2, C] (labels 2 and 3), on the
+        encoder's device."""
+        device = self.not_a_point_embed.weight.device
+        corners = torch.as_tensor(boxes, dtype=torch.float32,
+                                  device=device).reshape(-1, 2, 2)
+        labels = torch.tensor([2, 3], device=device).expand(
+            corners.shape[0], 2)
+        return self.encode_points(corners, labels)
+
     def encode_masks(self, masks: torch.Tensor) -> torch.Tensor:
         """masks [B, 4H, 4W, 1] logits -> dense embedding [B, H, W, C]."""
         md = self.mask_downscaling

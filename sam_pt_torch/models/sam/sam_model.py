@@ -156,3 +156,11 @@ class Sam(nn.Module):
             image_embeddings.to(dtype), image_pe.to(dtype), sparse.to(dtype),
             dense.to(dtype), prompt_valid, only_token0=only_token0)
         return masks.float(), iou_pred.float()
+
+
+def build_sam(variant="vit_b", dtype: torch.dtype = torch.float32,
+              device="cuda", **kw) -> Sam:
+    """`Sam(variant, **kw)` in `dtype` on `device` (PyTorch's default
+    initialisation; load a checkpoint with `load_state_dict` or
+    `models/sam/factory.py::build_predictor`)."""
+    return Sam(variant, **kw).to(device=device, dtype=dtype)

@@ -9,7 +9,9 @@
     visibilities:  [1, T, N] float32 tensor; == 1 means visible (see
                    `sam_pt_torch.utils.util.PointVisibilityType`).
 
-`forward` is the same with numpy results.
+`forward` is the same with numpy results; `evaluate_batch` and
+`unpack_results` pack and flatten them as the reference tracker contract
+does (`sam_pt/point_tracker/tracker.py:47-118`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ class PointTracker(abc.ABC):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         ...
 
+    @property
+    def device(self) -> torch.device:
+        """The device the tracker's weights are on."""
+        return next(self.model.parameters()).device
+
     def forward(self, rgbs: torch.Tensor, query_points: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
         traj, vis = self.forward_device(rgbs, query_points)
@@ -35,6 +42,53 @@ class PointTracker(abc.ABC):
 
     def __call__(self, rgbs, query_points):
         return self.forward(rgbs, query_points)
+
+    def evaluate_batch(self, rgbs, query_points,
+                       trajectories_gt: Optional[np.ndarray] = None,
+                       visibilities_gt: Optional[np.ndarray] = None) -> dict:
+        """`forward` on the tracker's device (rgbs [B, T, H, W, 3], numpy
+        or a tensor, moved there; query_points [B, N, 3]), its outputs
+        packed as numpy arrays beside the query points and the optional
+        ground truth."""
+        rgbs = torch.as_tensor(rgbs, device=self.device)
+        query_points = np.asarray(query_points)
+        trajectories, visibilities = self.forward(rgbs, query_points)
+        b, t = rgbs.shape[:2]
+        n = query_points.shape[1]
+        if trajectories.shape != (b, t, n, 2):
+            raise ValueError(f"trajectories of shape {trajectories.shape} "
+                             f"for {b} videos of {t} frames and {n} points")
+        return {
+            "trajectories_pred": trajectories,
+            "visibilities_pred": visibilities,
+            "query_points": query_points,
+            "trajectories_gt": (None if trajectories_gt is None
+                                else np.asarray(trajectories_gt)),
+            "visibilities_gt": (None if visibilities_gt is None
+                                else np.asarray(visibilities_gt)),
+        }
+
+    @classmethod
+    def unpack_results(cls, packed: dict, batch_idx: int) -> list:
+        """`evaluate_batch`'s arrays as one record a (video, point)."""
+        out = []
+        traj = packed["trajectories_pred"]
+        for b in range(traj.shape[0]):
+            for n in range(traj.shape[2]):
+                row = {
+                    "idx": f"{batch_idx}_{b}_{n}",
+                    "iter": batch_idx,
+                    "video_idx": b,
+                    "point_idx_in_video": n,
+                    "query_point": packed["query_points"][b, n, :],
+                    "trajectory_pred": traj[b, :, n, :],
+                    "visibility_pred": packed["visibilities_pred"][b, :, n],
+                }
+                if packed.get("trajectories_gt") is not None:
+                    row["trajectory_gt"] = packed["trajectories_gt"][b, :, n, :]
+                    row["visibility_gt"] = packed["visibilities_gt"][b, :, n]
+                out.append(row)
+        return out
 
     def per_video(self, rgbs: torch.Tensor, compute: Callable[[], object]):
         """`compute()` once per video tensor, kept for the next call with

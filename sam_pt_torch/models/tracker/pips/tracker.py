@@ -47,10 +47,16 @@ class PipsPointTracker(PointTracker):
                            device=device)
         self.model.to(dtype).eval().requires_grad_(False)
 
+    def encode_video(self, video: torch.Tensor) -> torch.Tensor:
+        """video [T, H, W, 3] on the tracker's device -> features
+        [T, H/stride, W/stride, C], encoded in chunks of `encode_chunk`
+        frames (the last chunk padded with its final frame)."""
+        return encode_in_chunks(self.model.encode_frames, video,
+                                self.encode_chunk)
+
     def _features(self, rgbs: torch.Tensor) -> torch.Tensor:
         """The video's features, encoded once per video tensor."""
-        return self.per_video(rgbs, lambda: encode_in_chunks(
-            self.model.encode_frames, rgbs[0], self.encode_chunk))
+        return self.per_video(rgbs, lambda: self.encode_video(rgbs[0]))
 
     def _link(self, fmaps: torch.Tensor, query_points: np.ndarray,
               reverse: bool) -> Tuple[np.ndarray, np.ndarray]:

@@ -92,6 +92,10 @@ class SuperGluePointTracker(PointTracker):
         self.masks: Optional[np.ndarray] = None
         self.rng = np.random.default_rng(seed)
 
+    @property
+    def device(self) -> torch.device:
+        return next(self.superpoint.parameters()).device
+
     def set_masks(self, masks: np.ndarray) -> None:
         """masks [n_masks, H, W] of the next `forward_device`'s video."""
         self.masks = np.asarray(masks)

@@ -293,7 +293,7 @@ def sample_query_features(grid: torch.Tensor, query_points: torch.Tensor,
     q = bilinear_sample(grid[t_idx], x[:, None], y[:, None],
                         pad_mode="clamp")[:, 0]
     if time_shard is not None:
-        q = psum(q * owned[:, None].to(q.dtype), time_shard.group).to(q.dtype)
+        q = psum(q * owned[:, None].to(q.dtype), time_shard.group)
     return q
 
 

@@ -14,6 +14,10 @@ Conventions (all channels-last, [..., H, W, C]):
   - "half_pixel": F.interpolate(mode='bilinear', align_corners=False)
   - "align_corners": F.interpolate(..., align_corners=True)
   - antialias=True: PIL-style triangle filter
+  - `resize_nearest`: F.interpolate(mode='nearest'), torch's floor
+    convention, as a gather of the source rows and columns (the JAX
+    package's one-hot matrices in float32 give the same numbers for
+    finite values)
 """
 from __future__ import annotations
 
@@ -168,6 +172,20 @@ def resize_planes(x: torch.Tensor, out_hw, *,
                                         x.device), -1, cols)
     elif cols != in_w:
         x = x[..., :cols]
+    return x
+
+
+def resize_nearest(x: torch.Tensor, out_hw, *, h_axis: int = -3,
+                   w_axis: int = -2) -> torch.Tensor:
+    """Nearest-neighbour resize of the (H, W) axes, torch's floor
+    convention: output row i reads row floor(i * in / out), clamped. The
+    dtype is kept."""
+    for axis, out in ((h_axis, out_hw[0]), (w_axis, out_hw[1])):
+        size = x.shape[axis]
+        if size != out:
+            src = np.clip(np.floor(np.arange(out) * (size / out)), 0,
+                          size - 1).astype(np.int64)
+            x = x.index_select(axis, torch.as_tensor(src, device=x.device))
     return x
 
 

@@ -3,7 +3,8 @@
 
 `bilinear_sample` gathers the four integer taps around each point and
 blends them, with the JAX package's `clamp` and `zeros` padding modes;
-`bilinear_sample_nchw` is its clamped form on channels-first maps.
+`bilinear_sample_nchw` is its clamped form on channels-first maps;
+`grid_sample_nearest` takes the nearest pixel, clamped.
 `separable_neighborhood_sample` samples a regular (dy, dx) grid around
 centres as two small products against bilinear "hat" weight matrices,
 exactly as the JAX package does (grid_sample zero padding, align_corners
@@ -82,6 +83,17 @@ def bilinear_sample_nchw(img: torch.Tensor, x: torch.Tensor,
             + tap(iy0, ix1) * (wy0 * wx1)[:, None]
             + tap(iy1, ix0) * (wy1 * wx0)[:, None]
             + tap(iy1, ix1) * (wy1 * wx1)[:, None])
+
+
+def grid_sample_nearest(img: torch.Tensor, x: torch.Tensor,
+                        y: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour sample of img [H, W, C] at pixel coords x, y of
+    shape [...] -> [..., C], in img's dtype: each coordinate rounded half
+    to even and clamped to the image."""
+    h, w = img.shape[0], img.shape[1]
+    ix = torch.round(x).long().clamp(0, w - 1)
+    iy = torch.round(y).long().clamp(0, h - 1)
+    return img[iy, ix]
 
 
 def _hat_weights(coords: torch.Tensor, size: int,

@@ -36,9 +36,12 @@ def group_rank(group: Optional[dist.ProcessGroup] = None) -> int:
 
 def psum(x: torch.Tensor,
          group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
-    """The sum of `x` over the ranks of `group`, in float32 (a new
-    tensor: `x` is left as it is)."""
-    out = x.to(torch.float32, copy=True)
+    """The sum of `x` over the ranks of `group`, in x's dtype, as
+    `jax.lax.psum` sums (a new tensor: `x` is left as it is). A caller
+    that wants a float32 sum passes float32. Two bf16 values sum to
+    their float32 sum rounded to bf16; over more ranks the backend's
+    ring rounds each partial sum."""
+    out = x.clone()
     if dist.is_initialized():
         dist.all_reduce(out, group=group)
     return out

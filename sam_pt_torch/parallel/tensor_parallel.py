@@ -11,11 +11,17 @@ block's work to 1/m per rank. Per ViT block (Megatron's layout):
     slice of the full one; the attention then runs kernel K1 (windows,
     below 1024 tokens) or K2 (global) at H/m local heads;
   - `attn.proj` keeps its head-major column block: a row-parallel output
-    projection, a partial product in float32 closed by one `psum` over
-    the model group, then the bias;
+    projection, a partial product in float32 closed by one float32
+    `psum` over the model group, then the bias, rounded once to the
+    working dtype (the JAX sublayer's `preferred_element_type=float32`
+    partial and its float32 `psum`);
   - `mlp.lin1` keeps its row block (column parallel: the GELU runs on the
-    local hidden units) and `mlp.lin2` its column block (row parallel,
-    one `psum`, then the bias).
+    local hidden units) and `mlp.lin2` its column block (row parallel):
+    the partial product rounded to the working dtype, one `psum` in that
+    dtype, then the bias added in it. These are the rounding points of
+    the JAX program, whose `mlp_lin2` is a bf16 `Dense` that GSPMD
+    closes with a bf16 all-reduce; at bf16 the `psum` moves half the
+    bytes of the attention's.
 
 Two `psum`s a block; LayerNorms, rel-pos tables (shared by the heads),
 the patch embedding, the neck and the prompt encoder and mask decoder are
@@ -23,14 +29,14 @@ replicated. Unlike the JAX package, which falls back to an XLA path where
 the local head count misaligns with the TPU kernels' lane tiling, K1 and
 K2 take any head count at head dims 16-128, so every block takes this
 route. Numerics against the unsharded encoder: the same products, the
-output projections' float32 sums in another order.
+output projections' sums in another order, and at bf16 the MLP's
+partials rounded before they are summed.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -54,31 +60,27 @@ def create_tp_mesh(n_model: int, n_data: Optional[int] = None,
     return create_mesh(axis_names, (n_data, n_model))
 
 
-def row_parallel_linear(x: torch.Tensor, linear: nn.Linear,
-                        group: Optional[dist.ProcessGroup]) -> torch.Tensor:
-    """`linear` over its rank's row block of the contraction: x's local
-    columns times the local weight block in float32 (the products of the
-    working dtype's values, summed in float32), one `psum` over `group`,
-    then the bias, rounded once to x's dtype."""
-    part = F.linear(x.float(), linear.weight.float())
-    return (psum(part, group) + linear.bias.float()).to(x.dtype)
-
-
 def tp_shardmap_attention(x: torch.Tensor, attn: nn.Module, hw,
                           cropped: bool = False) -> torch.Tensor:
     """The head-sharded attention sublayer of one rank: x [B, N, C] ->
     the local qkv projection [B, N, 3 * H/m * D], the attention at H/m
     local heads (`attn.attend`: K2 from 1024 tokens, K1 for windows), the
-    row-parallel output projection closed by one `psum`."""
+    row-parallel output projection: the local heads' outputs times the
+    local weight block in float32 (the products of the working dtype's
+    values, summed in float32), one float32 `psum`, then the bias,
+    rounded once to the working dtype."""
     out = attn.attend(attn.qkv(x), hw, cropped)
-    return row_parallel_linear(out, attn.proj, attn.tp_group)
+    part = F.linear(out.float(), attn.proj.weight.float())
+    return (psum(part, attn.tp_group) + attn.proj.bias.float()).to(out.dtype)
 
 
 def tp_mlp(x: torch.Tensor, mlp: nn.Module) -> torch.Tensor:
     """The MLP of one rank: column-parallel `lin1` and the GELU on the
-    local hidden units, row-parallel `lin2` closed by one `psum`."""
-    return row_parallel_linear(mlp.activation(mlp.lin1(x)), mlp.lin2,
-                               mlp.tp_group)
+    local hidden units, then row-parallel `lin2`: the local product in
+    the working dtype, one `psum` in that dtype, then the bias added in
+    it (three roundings at bf16, as the JAX program has them)."""
+    part = F.linear(mlp.activation(mlp.lin1(x)), mlp.lin2.weight)
+    return psum(part, mlp.tp_group) + mlp.lin2.bias
 
 
 def _keep_rows(linear: nn.Linear, rows: torch.Tensor) -> None:

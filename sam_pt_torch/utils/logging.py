@@ -1,4 +1,4 @@
-"""Experiment logging (counterpart of `RunLogger` in
+"""Experiment logging (counterpart of `RunLogger` and `StageTimer` in
 `sam_pt_tpu/utils/logging.py`).
 
 A local-first logger in place of the reference's mandatory wandb backbone:
@@ -7,6 +7,7 @@ WANDB_DISABLED is not set, it mirrors there transparently.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -73,3 +74,26 @@ class RunLogger:
     def finish(self) -> None:
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class StageTimer:
+    """Per-stage wall-clock totals on the host's clock (time of work on
+    a device counts only where the stage waits for it)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> Dict[str, float]:
+        """The totals, longest first."""
+        return dict(sorted(self.totals.items(), key=lambda kv: -kv[1]))

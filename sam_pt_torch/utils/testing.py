@@ -8,7 +8,8 @@ it, so that `model=sam_pt_tiny_test` runs the CLI in seconds on the CPU
 `build_tiny_predictor` is the tiny SAM alone (counterpart of the JAX
 package's `build_tiny_predictor`), named by `configs/model/sam/
 sam_tiny_test.yaml` for the VIS CLI, where the generator and the SamPt
-share it.
+share it; `build_tiny_sam` and `build_tiny_pips` are its SAM and a tiny
+PIPS tracker alone (the JAX package's builders of the same names).
 """
 from __future__ import annotations
 
@@ -28,10 +29,35 @@ TINY_VIT = dict(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
                 window_size=2)
 
 
-def _tiny_predictor(device: torch.device,
-                    generator: torch.Generator) -> SamPredictor:
-    sam = randomize_(Sam(TINY_VIT, image_size=64).to(device), generator)
-    return SamPredictor(sam.eval().requires_grad_(False))
+def _tiny_sam(device: torch.device, generator: torch.Generator,
+              image_size: int = 64) -> Sam:
+    sam = randomize_(Sam(TINY_VIT, image_size=image_size).to(device),
+                     generator)
+    return sam.eval().requires_grad_(False)
+
+
+def _tiny_pips(device: torch.device, generator: torch.Generator,
+               seed: int, s: int = 4, stride: int = 4) -> PipsPointTracker:
+    tracker = PipsPointTracker(stride=stride, s=s, iters=2,
+                               allow_random_init=True, seed=seed,
+                               device=device)
+    tracker.model = randomize_(
+        Pips(s=s, stride=stride, latent_dim=16, hidden_dim=32,
+             mixer_depth=2).to(device), generator).eval().requires_grad_(
+                 False)
+    return tracker
+
+
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def build_tiny_sam(image_size: int = 64, seed: int = 0,
+                   device: Union[str, torch.device] = "cuda") -> Sam:
+    """The tiny SAM on `device`; at 64 pixels, the weights
+    `build_tiny_sam_pt(seed)` gives its SAM."""
+    device = torch.device(device)
+    return _tiny_sam(device, _generator(device, seed), image_size)
 
 
 def build_tiny_predictor(seed: int = 0,
@@ -39,9 +65,15 @@ def build_tiny_predictor(seed: int = 0,
                          ) -> SamPredictor:
     """The tiny SAM's predictor: the weights `build_tiny_sam_pt(seed)`
     gives its SAM."""
+    return SamPredictor(build_tiny_sam(seed=seed, device=device))
+
+
+def build_tiny_pips(seed: int = 0, device: Union[str, torch.device] = "cuda",
+                    s: int = 4, stride: int = 4) -> PipsPointTracker:
+    """A PIPS tracker at width 16 (hidden 32, a mixer of depth 2, 2
+    iterations), N(0, 0.02^2) weights from a generator seeded `seed`."""
     device = torch.device(device)
-    return _tiny_predictor(
-        device, torch.Generator(device=device).manual_seed(seed))
+    return _tiny_pips(device, _generator(device, seed), seed, s, stride)
 
 
 def build_tiny_sam_pt(seed: int = 0,
@@ -52,14 +84,9 @@ def build_tiny_sam_pt(seed: int = 0,
     """The tiny SamPt; with `sam_predictor`, that predictor in place of
     its own tiny SAM (the tracker's weights stay the same)."""
     device = torch.device(device)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    own = _tiny_predictor(device, generator)
-    tracker = PipsPointTracker(stride=4, s=4, iters=2, allow_random_init=True,
-                               seed=seed, device=device)
-    tracker.model = randomize_(
-        Pips(s=4, stride=4, latent_dim=16, hidden_dim=32,
-             mixer_depth=2).to(device), generator).eval().requires_grad_(
-                 False)
+    generator = _generator(device, seed)
+    own = SamPredictor(_tiny_sam(device, generator))
+    tracker = _tiny_pips(device, generator, seed)
     defaults = dict(
         sam_iou_threshold=0.0,
         positive_points_per_mask=4,

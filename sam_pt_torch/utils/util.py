@@ -1,10 +1,12 @@
 """Point visibility taxonomy (as `sam_pt_tpu.utils.util.PointVisibilityType`):
 a point is visible iff its visibility value == 1. Also the visibility
-colours of the visualisations and `seed_all`."""
+colours of the visualisations, `seed_all`, `batchify_list` and
+`round_up`."""
 from __future__ import annotations
 
 import enum
 import random
+from typing import List, Sequence, TypeVar
 
 import numpy as np
 import torch
@@ -35,3 +37,17 @@ def seed_all(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+T = TypeVar("T")
+
+
+def batchify_list(data: Sequence[T], batch_size: int) -> List[List[T]]:
+    """`data` in chunks of at most `batch_size`, in order."""
+    return [list(data[i:i + batch_size])
+            for i in range(0, len(data), batch_size)]
+
+
+def round_up(x: int, multiple: int) -> int:
+    """x rounded up to a multiple of `multiple`."""
+    return ((x + multiple - 1) // multiple) * multiple

@@ -94,7 +94,11 @@ def save_video(frames: np.ndarray, path: str, fps: int = 10) -> None:
     """Save [T, H, W, 3] uint8 RGB frames as mp4 (cv2) or gif (Pillow)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if path.endswith(".gif") or cv2 is None:
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(f"writing {path} as a GIF needs Pillow, "
+                              f"which is not installed") from e
 
         imgs = [Image.fromarray(f) for f in frames]
         imgs[0].save(

@@ -764,3 +764,32 @@ def test_vis_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert line in out
     assert "FAIL" not in out
 
+
+
+def test_helpers_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 3b on the CPU at 48 x 80 with the tiny CoTracker tracker
+    (float32) in place of the main path's: `evaluate_batch` against
+    `forward`, `unpack_results`, and the box embeddings and nearest
+    resizes and samples against themselves, one `helpers:` line."""
+    from sam_pt_torch.models.tracker.cotracker.model import CoTracker
+    from sam_pt_torch.models.tracker.cotracker.tracker import (
+        CoTrackerPointTracker,
+    )
+    from sam_pt_torch.utils.checkpoint import randomize_
+    from torch_port_helpers import TINY_COTRACKER, TINY_TRACKER
+
+    _rehearsal(monkeypatch)
+
+    def tiny(device):
+        g = torch.Generator(device=device).manual_seed(0)
+        model = randomize_(CoTracker(**TINY_COTRACKER).to(device), g)
+        return CoTrackerPointTracker(
+            model=model.eval().requires_grad_(False), **TINY_TRACKER)
+
+    monkeypatch.setattr(chip_smoke, "build_main_cotracker", tiny)
+    chip_smoke.helpers_phase(torch.device("cpu"), "the CPU")
+    out = capsys.readouterr().out
+    assert ("packed outputs bit-equal to forward's, 16 records" in out
+            and "resize_nearest logits equal, resize_nearest mask equal, "
+                "grid_sample_nearest equal to the CPU's" in out
+            and "(OK at 6.10352e-05 + 6.10352e-05 |ref|)" in out), out

@@ -78,6 +78,9 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
                  "outputs bit-equal across ranks",
                  "chunks (encode, decode) (4, 6)",
                  "parallel tp gloo x2 (model 2): embeddings rel. L2",
+                 "parallel tp gloo x2 (model 2): the MLP's psum "
+                 "torch.float32,",
+                 "the attention's torch.float32",
                  "1 local heads", "parallel tp gloo x4 (data 2 x model 2)",
                  "parallel time gloo x2 tapnet: 5 frames over 2 ranks",
                  "parallel time gloo x3 tapir: 5 frames over 3 ranks",

@@ -94,6 +94,10 @@ SLICE_MODULES = [
     "sam_pt_torch.vis_eval.datasets",
     "sam_pt_torch.vis_eval.adapter",
     "sam_pt_torch.vis_eval.eval",
+    "sam_pt_torch.ops",
+    "sam_pt_torch.tools",
+    "sam_pt_torch.tools.annotation_comparison_gif",
+    "sam_pt_torch.tools.visualize_point_sampling_methods",
 ]
 # Importable here but not on every machine the port runs on.
 BLOCKED = ["jax", "flax", "sam_pt_tpu", "yaml", "PIL", "pandas", "cv2",

@@ -43,7 +43,9 @@ def comm_rank(device, inputs, mesh_shape, items, blob_sizes):
     mine = {k: torch.from_numpy(v) for k, v in inputs[rank].items()}
     out = {"rank": rank}
     out["psum_f32"] = comm.psum(mine["f32"])
-    out["psum_bf16"] = comm.psum(mine["f32"].to(torch.bfloat16))
+    psum_bf16 = comm.psum(mine["f32"].to(torch.bfloat16))
+    out["psum_bf16"] = psum_bf16.float()
+    out["psum_bf16_dtype"] = str(psum_bf16.dtype)
     left, right = comm.ring_halo(mine["first"], mine["last"])
     out["halo_left"], out["halo_right"] = left, right
     special = mine["special"].view(torch.bfloat16)
@@ -95,7 +97,8 @@ def tp_rank(device, encoders, predictor):
             data = batch_sharding(mesh, "data")
             emb = data.gather(enc(data.shard(torch.from_numpy(x))))
             out["encoders"].append(
-                {"emb": emb, "local_heads": enc.blocks[0].attn.num_heads,
+                {"emb": emb.float(),
+                 "local_heads": enc.blocks[0].attn.num_heads,
                  "local_hidden": enc.blocks[0].mlp.lin1.out_features})
     if predictor is not None:
         sam, images, points, labels, n_model, n_data = predictor
@@ -106,6 +109,26 @@ def tp_rank(device, encoders, predictor):
         masks, iou, _ = pred.predict(emb, points, labels, hw)
         out["predictor"] = {"emb": emb, "masks": masks, "iou": iou}
     return _np(out)
+
+
+def tp_block_rank(device, encoder, rows, hw, n_model):
+    """The first block of a copy of the port `ImageEncoderViT` `encoder`,
+    sharded over a model axis of `n_model` (every rank of the world), on
+    token rows `rows` [B, N, C] (numpy float32, cast to the encoder's
+    dtype) of an `hw` grid; float32 out."""
+    torch.set_num_threads(1)
+    import copy
+
+    from sam_pt_torch.parallel.tensor_parallel import (
+        create_tp_mesh,
+        shard_params_tp,
+    )
+
+    enc = shard_params_tp(copy.deepcopy(encoder), create_tp_mesh(n_model))
+    dtype = enc.pos_embed.dtype
+    with torch.no_grad():
+        out = enc.blocks[0](torch.from_numpy(rows).to(dtype), tuple(hw))
+    return _np(out.float())
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,13 @@
+"""Milliseconds a frame that the device idles while the host is in the
+point tracker: the idle gaps of the traced run's profiled pass given to
+the program's `track` span and its children (`track.features`,
+`track.window`) over the frames of the pass's `video` spans.
+
+Reads nothing until the traced run sets `Record.program` and
+`Record.program_profile` (`harness/program_trace.py`)."""
+from benchmark.harness import program_trace
+
+
+def read(record):
+    value = program_trace.reading(record, "gaps", "track", "frames")
+    return None if value is None else 1e3 * value

@@ -30,6 +30,7 @@ from ...ops.resize import (
 )
 from ...parallel.mesh import batch_sharding, check_mesh
 from ...parallel.tensor_parallel import shard_params_tp
+from ...utils import tracing
 from .sam_model import Sam
 
 
@@ -117,7 +118,10 @@ class SamPredictor:
                mask_valid: Optional[torch.Tensor] = None,
                only_token0: bool = False):
         """Model-space prompts -> (logits [B, T, 4g, 4g], iou [B, 4]); an
-        HQ-SAM model decodes every token (its token 0 reads the HQ one)."""
+        HQ-SAM model decodes every token (its token 0 reads the HQ one).
+        Each call counts one of the open span's decoder `passes`."""
+        tracing.count("passes")
+
         def decode(emb, pts, lbl, mask, valid):
             return self.model.decode_masks(
                 emb, pts, lbl, mask, valid,

@@ -58,6 +58,7 @@ from ..utils.query_points import (
     extract_random_mask_points,
 )
 from ..parallel.mesh import batch_sharding, check_mesh, create_mesh
+from ..utils import tracing
 from ..utils.util import PointVisibilityType
 from .sam.predictor import SamPredictor
 from .tracker.api import PointTracker
@@ -250,9 +251,15 @@ class SamPt:
             images = np.ascontiguousarray(images.transpose(0, 2, 3, 1))
         if images.dtype != np.uint8:
             raise ValueError("input images must be uint8 (0-255)")
+        with tracing.video(video.get("video_id"), self.device,
+                           frames=images.shape[0]):
+            return self._forward(video, images)
+
+    def _forward(self, video: Dict, images: np.ndarray) -> Dict:
         t, h, w, _ = images.shape
         self._setup_mesh()
-        images_dev = torch.from_numpy(images).to(self.device)
+        with tracing.span("upload", bytes=images.nbytes):
+            images_dev = torch.from_numpy(images).to(self.device)
         emb = self._encode_all_frames(images_dev)
 
         if video.get("query_masks") is not None:
@@ -268,6 +275,8 @@ class SamPt:
         else:
             raise ValueError("no query points or masks given")
         n_masks, n_points, _ = query_points.shape
+        tracing.count("objects", n_masks)
+        tracing.count("pairs", t * n_masks)
         if hasattr(self.point_tracker, "set_masks"):
             self._set_tracker_masks(query_masks, n_masks)
 
@@ -322,34 +331,48 @@ class SamPt:
                              query_masks: np.ndarray,
                              timesteps: np.ndarray) -> np.ndarray:
         """(t, x, y) query points [M, P, 3] sampled on the host."""
-        pos = self._select_points(images, query_masks, timesteps,
-                                  self.positive_point_selection_method,
-                                  self.positive_points_per_mask)
-        if self.negative_points_per_mask > 0:
-            neg = self._select_points(images, 1.0 - query_masks, timesteps,
-                                      self.negative_point_selection_method,
-                                      self.negative_points_per_mask)
-            xy = [np.concatenate([p, n], axis=0) for p, n in zip(pos, neg)]
-        else:
-            xy = pos
+        with tracing.span("query", objects=len(query_masks)):
+            pos = self._select_points(images, query_masks, timesteps,
+                                      self.positive_point_selection_method,
+                                      self.positive_points_per_mask)
+            if self.negative_points_per_mask > 0:
+                neg = self._select_points(
+                    images, 1.0 - query_masks, timesteps,
+                    self.negative_point_selection_method,
+                    self.negative_points_per_mask)
+                xy = [np.concatenate([p, n], axis=0)
+                      for p, n in zip(pos, neg)]
+            else:
+                xy = pos
         xy = np.stack(xy, axis=0)
         ts = np.broadcast_to(timesteps[:, None, None], (*xy.shape[:2], 1))
         return np.concatenate([ts, xy], axis=2).astype(np.float32)
 
     def _select_points(self, images, masks, timesteps, method,
                        n) -> List[np.ndarray]:
-        if method == "kmedoids":
-            return [extract_kmedoid_points(m, n, rng=self.rng) for m in masks]
-        if method == "shi-tomasi":
-            return [extract_corner_points(images[int(t)], m, n, rng=self.rng)
-                    for m, t in zip(masks, timesteps)]
-        if method == "random":
-            return [extract_random_mask_points(m, n, rng=self.rng)
-                    for m in masks]
+        """`n` points a mask by `method`, each mask's in its own span (the
+        mixed method's, which draws for every mask at once, in one)."""
         if method == "mixed":
-            return extract_mixed_points(list(masks), timesteps, images, n,
-                                        rng=self.rng)
-        raise NotImplementedError(f"Point selection method {method}")
+            with tracing.span("query.points", points=n * len(masks)):
+                return extract_mixed_points(list(masks), timesteps, images,
+                                            n, rng=self.rng)
+        if method == "kmedoids":
+            def pick(m, _):
+                return extract_kmedoid_points(m, n, rng=self.rng)
+        elif method == "shi-tomasi":
+            def pick(m, t):
+                return extract_corner_points(images[int(t)], m, n,
+                                             rng=self.rng)
+        elif method == "random":
+            def pick(m, _):
+                return extract_random_mask_points(m, n, rng=self.rng)
+        else:
+            raise NotImplementedError(f"Point selection method {method}")
+        points = []
+        for m, t in zip(masks, timesteps):
+            with tracing.span("query.points", points=n):
+                points.append(pick(m, t))
+        return points
 
     def _encode_all_frames(self, images_dev: torch.Tensor):
         """[T, H, W, 3] uint8 -> [T, g, g, 256] (with HQ-SAM, a dict of
@@ -358,14 +381,19 @@ class SamPt:
         t, h, w, _ = images_dev.shape
         ec = self.sam_encode_chunk
         chunks = []
-        for i in range(0, t, ec):
-            chunk = images_dev[i:i + ec]
-            pad = ec - chunk.shape[0]
-            if pad:
-                chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1, -1)])
-            emb = self.sam_predictor.encode_frames(self._shard(chunk), (h, w))
-            chunks.append(emb_map(lambda e: e[:ec - pad], emb))
-        return emb_map(lambda *c: torch.cat(c, dim=0), *chunks)
+        with tracing.span("encode", frames=t):
+            for i in range(0, t, ec):
+                chunk = images_dev[i:i + ec]
+                pad = ec - chunk.shape[0]
+                if pad:
+                    chunk = torch.cat([chunk,
+                                       chunk[-1:].expand(pad, -1, -1, -1)])
+                with tracing.span("encode.chunk", frames=ec - pad,
+                                  padded_frames=pad):
+                    emb = self.sam_predictor.encode_frames(self._shard(chunk),
+                                                           (h, w))
+                chunks.append(emb_map(lambda e: e[:ec - pad], emb))
+            return emb_map(lambda *c: torch.cat(c, dim=0), *chunks)
 
     def _track_points_device(self, images_dev, query_points, hw):
         """Track in mask batches; with `use_patch_matching_filtering`, the
@@ -375,26 +403,30 @@ class SamPt:
         t = images_dev.shape[0]
         m, p, _ = query_points.shape
         bs = self.point_tracker_mask_batch_size
-        video_b = images_dev[None]  # one object: the tracker's cache hits
-        trajs, viss = [], []
-        for i in range(0, m, bs):
-            batch = query_points[i:i + bs].reshape(1, -1, 3)
-            out_t, out_v = self.point_tracker.forward_device(video_b, batch)
-            nb = min(bs, m - i)
-            trajs.append(out_t[0].reshape(t, nb, p, 2))
-            viss.append(out_v[0].reshape(t, nb, p))
-        trajectories = torch.cat(trajs, dim=1).float()
-        visibilities = torch.cat(viss, dim=1).float()
-        if self.use_patch_matching_filtering:
-            visibilities = self._patch_filter(images_dev, query_points,
-                                              trajectories, visibilities)
-        x, y = trajectories[..., 0], trajectories[..., 1]
-        oob = (x / w < 0.01) | (x / w > 0.99) | (y / h < 0.01) | (y / h > 0.99)
-        visibilities = torch.where(
-            oob, torch.full_like(visibilities,
-                                 float(PointVisibilityType.OUTSIDE_FRAME)),
-            visibilities)
-        return self._replicated(trajectories), self._replicated(visibilities)
+        with tracing.span("track", frames=t, tracks=m * p):
+            video_b = images_dev[None]  # one object: the tracker's cache hits
+            trajs, viss = [], []
+            for i in range(0, m, bs):
+                batch = query_points[i:i + bs].reshape(1, -1, 3)
+                out_t, out_v = self.point_tracker.forward_device(video_b,
+                                                                 batch)
+                nb = min(bs, m - i)
+                trajs.append(out_t[0].reshape(t, nb, p, 2))
+                viss.append(out_v[0].reshape(t, nb, p))
+            trajectories = torch.cat(trajs, dim=1).float()
+            visibilities = torch.cat(viss, dim=1).float()
+            if self.use_patch_matching_filtering:
+                visibilities = self._patch_filter(images_dev, query_points,
+                                                  trajectories, visibilities)
+            x, y = trajectories[..., 0], trajectories[..., 1]
+            oob = ((x / w < 0.01) | (x / w > 0.99) | (y / h < 0.01)
+                   | (y / h > 0.99))
+            visibilities = torch.where(
+                oob, torch.full_like(visibilities,
+                                     float(PointVisibilityType.OUTSIDE_FRAME)),
+                visibilities)
+            return (self._replicated(trajectories),
+                    self._replicated(visibilities))
 
     def _patch_filter(self, images_dev, query_points, trajectories,
                       visibilities):
@@ -407,12 +439,12 @@ class SamPt:
         REJECTED_AFTER_PATCH_WAS_NON_SIMILAR."""
         t, m, p, _ = trajectories.shape
         qp = query_points.reshape(m * p, 3)
-        sims = patch_similarities(
+        sims = tracing.to_host(patch_similarities(
             images_dev, trajectories.reshape(t, m * p, 2),
             torch.from_numpy(np.ascontiguousarray(qp)).to(images_dev.device),
-            self.patch_size).cpu().numpy()
+            self.patch_size))
         similar = sims > self.patch_similarity_threshold
-        vis = visibilities.reshape(t, m * p).cpu().numpy().copy()
+        vis = tracing.to_host(visibilities.reshape(t, m * p)).copy()
         non_similar = float(PointVisibilityType.PATCH_NON_SIMILAR)
         vis[(vis == 1) & ~similar] = non_similar
 
@@ -436,19 +468,22 @@ class SamPt:
         or on the host, as the JAX package's host path does, with patch
         filtering or where a cap on other objects' points draws from
         `self.rng`. Returns (logits [M, T, h, w], scores_per_frame [T, M])."""
-        if self.use_patch_matching_filtering or (
-                self.add_other_objects_positive_points_as_negative_points
-                and self.max_other_objects_positive_points is not None):
-            points, labels = (
-                torch.from_numpy(a).to(trajectories.device)
-                for a in self._build_prompts(trajectories.cpu().numpy(),
-                                             visibilities.cpu().numpy()))
-        else:
-            points, labels = build_prompts(
-                trajectories, visibilities, self.positive_points_per_mask,
-                self.negative_points_per_mask > 0,
-                self.add_other_objects_positive_points_as_negative_points)
-        return self._decode_prompts(hw, points, labels, embeddings)
+        t, m = visibilities.shape[:2]
+        with tracing.span("decode", pairs=t * m):
+            if self.use_patch_matching_filtering or (
+                    self.add_other_objects_positive_points_as_negative_points
+                    and self.max_other_objects_positive_points is not None):
+                points, labels = (
+                    torch.from_numpy(a).to(trajectories.device)
+                    for a in self._build_prompts(
+                        tracing.to_host(trajectories),
+                        tracing.to_host(visibilities)))
+            else:
+                points, labels = build_prompts(
+                    trajectories, visibilities, self.positive_points_per_mask,
+                    self.negative_points_per_mask > 0,
+                    self.add_other_objects_positive_points_as_negative_points)
+            return self._decode_prompts(hw, points, labels, embeddings)
 
     def _decode_prompts(self, hw, points, labels, embeddings):
         """points [T, M, N, 2], labels [T, M, N] on the device, embeddings
@@ -473,9 +508,9 @@ class SamPt:
 
     def _decode_all_pairs(self, embeddings, emb_flat, pts_flat, lbl_flat,
                           hw, chain=None):
-        """Chunked decode chain (`self._chain`, or `chain`) over all pairs;
-        the last chunk is padded to the full chunk size with copies of its
-        first pair."""
+        """Chunked decode chain (`self._chain`, or `chain`) over all pairs,
+        a `decode.chunk` span each; the last chunk is padded to the full
+        chunk size with copies of its first pair."""
         chain = chain or self._chain
         b = pts_flat.shape[0]
         chunk = min(self.sam_decode_chunk, b)
@@ -491,8 +526,11 @@ class SamPt:
                              torch.full((chunk - nb,), i, device=device)])
             emb = self._shard(emb_map(lambda e: e[emb_flat[idx]],
                                       embeddings))
-            up, iou = chain(emb, self._shard(pts_flat[idx]),
-                            self._shard(lbl_flat[idx]), hw)
+            # The chain's decoder calls count themselves (`passes`).
+            with tracing.span("decode.chunk", pairs=nb,
+                              padded_pairs=chunk - nb):
+                up, iou = chain(emb, self._shard(pts_flat[idx]),
+                                self._shard(lbl_flat[idx]), hw)
             ups.append(up[:nb])
             ious.append(iou[:nb])
         return torch.cat(ups, dim=0), torch.cat(ious, dim=0)

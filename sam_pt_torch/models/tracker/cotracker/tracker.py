@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ....ops.sampling import bilinear_sample
+from ....utils import tracing
 from ....utils.checkpoint import load_or_randomize_
 from ..api import PointTracker, encode_in_chunks
 from .model import CoTracker
@@ -71,8 +72,10 @@ class CoTrackerPointTracker(PointTracker):
         self.stride = model.stride
         self._fmap_cache = None
 
-    def _track(self, fmaps: torch.Tensor, queries: torch.Tensor, t: int):
-        """CoTracker v1 windowed forward over all tracks.
+    def _track(self, fmaps: torch.Tensor, queries: torch.Tensor, t: int,
+               direction: str = "forward"):
+        """CoTracker v1 windowed forward over all tracks (`direction` names
+        the pass in its windows' spans).
 
         Windows start at 0, S/2, ... while start < t - S/2; reads past the
         video repeat its last frame. Per window only tracks whose query
@@ -111,9 +114,10 @@ class CoTrackerPointTracker(PointTracker):
                                       traj[init_idx])
             vis_init = torch.where(fresh, torch.full_like(vis[init_idx], 10.0),
                                    vis[init_idx])
-            coords_w, vis_w, _ = self.model(
-                fmaps[frames], coords_init, feats, tm, iters=self.iters,
-                vis_init=vis_init, active=active)
+            with tracing.span("track.window", direction=direction, tracks=n):
+                coords_w, vis_w, _ = self.model(
+                    fmaps[frames], coords_init, feats, tm, iters=self.iters,
+                    vis_init=vis_init, active=active)
             write = (real[:, None] * active[None, :].float()) > 0
             traj[ind:ind + s] = torch.where(write[..., None], coords_w,
                                             traj[ind:ind + s])
@@ -159,8 +163,9 @@ class CoTrackerPointTracker(PointTracker):
         if cache is not None and cache[0] is rgbs and cache[1] == (ih, iw):
             fmaps = cache[2]
         else:
-            fmaps = encode_in_chunks(self.model.encode_frames, video,
-                                     self.encode_chunk, (ih, iw))
+            with tracing.span("track.features", frames=t):
+                fmaps = encode_in_chunks(self.model.encode_frames, video,
+                                         self.encode_chunk, (ih, iw))
             self._fmap_cache = (rgbs, (ih, iw), fmaps)
 
         q_f = torch.as_tensor(queries, device=device)
@@ -173,7 +178,7 @@ class CoTrackerPointTracker(PointTracker):
             fmaps_b = torch.cat(
                 [fmaps_b, fmaps[:1].expand(t - t_orig, -1, -1, -1)])
         traj_b, vis_b = self._track(
-            fmaps_b, torch.as_tensor(queries_b, device=device), t)
+            fmaps_b, torch.as_tensor(queries_b, device=device), t, "backward")
         traj_b = torch.flip(traj_b[:t_orig], dims=[0])
         vis_b = torch.flip(vis_b[:t_orig], dims=[0])
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ....ops.sampling import bilinear_sample
+from ....utils import tracing
 from ....utils.checkpoint import load_or_randomize_
 from ..api import PointTracker, encode_in_chunks
 from .model import Pips
@@ -56,7 +57,11 @@ class PipsPointTracker(PointTracker):
 
     def _features(self, rgbs: torch.Tensor) -> torch.Tensor:
         """The video's features, encoded once per video tensor."""
-        return self.per_video(rgbs, lambda: self.encode_video(rgbs[0]))
+        def encode():
+            with tracing.span("track.features", frames=rgbs.shape[1]):
+                return self.encode_video(rgbs[0])
+
+        return self.per_video(rgbs, encode)
 
     def _link(self, fmaps: torch.Tensor, query_points: np.ndarray,
               reverse: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -96,13 +101,16 @@ class PipsPointTracker(PointTracker):
             if not len(active):
                 continue
             last = min(cf + s, t) - 1  # frames past the video are dropped
-            sel = torch.as_tensor(active, device=device)
-            coords, vlog, _ = self.model(
-                fmaps[frames(np.minimum(cf + np.arange(s), t - 1))],
-                torch.as_tensor(traj[cf, active], device=device),
-                feat_init[sel], iters=self.iters)
-            out = torch.cat([coords, torch.sigmoid(vlog)[..., None]],
-                            dim=-1).cpu().numpy()  # one copy per window
+            with tracing.span("track.window",
+                              direction="backward" if reverse else "forward",
+                              tracks=len(active)):
+                sel = torch.as_tensor(active, device=device)
+                coords, vlog, _ = self.model(
+                    fmaps[frames(np.minimum(cf + np.arange(s), t - 1))],
+                    torch.as_tensor(traj[cf, active], device=device),
+                    feat_init[sel], iters=self.iters)
+                out = tracing.to_host(torch.cat(  # one copy per window
+                    [coords, torch.sigmoid(vlog)[..., None]], dim=-1))
             traj[cf + 1:last + 1, active] = out[1:last + 1 - cf, :, :2]
             vis[cf + 1:last + 1, active] = out[1:last + 1 - cf, :, 2]
             # Walk each frontier back from the window's last frame to the

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import tracing
+
 LAUNCHES = {"window": 0, "global": 0, "cross": 0, "relpos": 0}
 # The most tokens the window body (K1, and K4 below 1024 tokens) takes.
 WINDOW_MAX_TOKENS = 208
@@ -278,6 +280,10 @@ def cross_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, nq, nk, heads, ch // heads, _rounded(divisor, q.dtype), _stream())
     check(status, "sam_cross_attention")
     LAUNCHES["cross"] += 1
+    if tracing.enabled():
+        tracing.count("k3.launches")
+        tracing.count("k3.pairs", b)
+        tracing.count("k3.keys", nk * b)
     return out
 
 

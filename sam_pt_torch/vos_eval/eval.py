@@ -31,6 +31,7 @@ import torch
 
 from ..config import compose, instantiate, resolve_interpolations
 from ..parallel.mesh import join_launched_world
+from ..utils import tracing
 from ..utils.util import seed_all
 from .data.image_io import write_png
 from .data.mask_mapper import MaskMapper
@@ -150,35 +151,41 @@ class PendingIndexMasks:
     """Fused index masks on the device whose download is deferred.
 
     `get()` starts every chunk's copy into pinned host memory without
-    blocking, waits once, and assembles the [T, h, w] uint8 array."""
+    blocking, waits once, and assembles the [T, h, w] uint8 array, in a
+    `fuse.download` span of the video the masks were made for."""
 
     def __init__(self, chunks: List[Tuple[torch.Tensor, int, int]], t: int,
                  h: int, w: int, packed: bool = False):
         self._chunks = chunks
         self._t, self._h, self._w = t, h, w
         self._packed = packed
+        self._video = tracing.current_video()  # the video it was made for
 
     def get(self) -> np.ndarray:
-        hosts = []
-        for masks, i, end in self._chunks:
-            host = torch.empty(masks.shape, dtype=masks.dtype,
-                               pin_memory=masks.is_cuda)
-            host.copy_(masks, non_blocking=True)
-            hosts.append((host, i, end))
-        if any(m.is_cuda for m, _, _ in self._chunks):
-            torch.cuda.current_stream(self._chunks[0][0].device).synchronize()
-        out = np.zeros((self._t, self._h, self._w), np.uint8)
-        for host, i, end in hosts:
-            got = host.numpy()[: end - i]
-            if self._packed:
-                unpacked = np.empty(
-                    (got.shape[0], got.shape[1], 2 * got.shape[2]), np.uint8)
-                unpacked[..., 0::2] = got & 0x0F
-                unpacked[..., 1::2] = got >> 4
-                got = unpacked[..., : self._w]
-            out[i:end] = got
-        self._chunks = []
-        return out
+        device = self._chunks[0][0].device if self._chunks else None
+        with tracing.span("fuse.download", video=self._video, device=device,
+                          bytes=sum(m.nbytes for m, _, _ in self._chunks)):
+            hosts = []
+            for masks, i, end in self._chunks:
+                host = torch.empty(masks.shape, dtype=masks.dtype,
+                                   pin_memory=masks.is_cuda)
+                host.copy_(masks, non_blocking=True)
+                hosts.append((host, i, end))
+            if any(m.is_cuda for m, _, _ in self._chunks):
+                torch.cuda.current_stream(device).synchronize()
+            out = np.zeros((self._t, self._h, self._w), np.uint8)
+            for host, i, end in hosts:
+                got = host.numpy()[: end - i]
+                if self._packed:
+                    unpacked = np.empty(
+                        (got.shape[0], got.shape[1], 2 * got.shape[2]),
+                        np.uint8)
+                    unpacked[..., 0::2] = got & 0x0F
+                    unpacked[..., 1::2] = got >> 4
+                    got = unpacked[..., : self._w]
+                out[i:end] = got
+            self._chunks = []
+            return out
 
 
 def device_fuse_index_masks(logits_dev: torch.Tensor, gt_masks: np.ndarray,
@@ -188,18 +195,19 @@ def device_fuse_index_masks(logits_dev: torch.Tensor, gt_masks: np.ndarray,
     [T, h, w] uint8 index masks (or a `PendingIndexMasks` with defer)."""
     m, t, h, w = logits_dev.shape
     device = logits_dev.device
-    gt = torch.as_tensor(np.asarray(gt_masks) > 0.5, device=device)
-    ts = torch.as_tensor(np.asarray(gt_ts, np.int64), device=device)
-    pack = m <= 15
-    chunks = []
-    for i in range(0, t, frame_chunk):
-        end = min(i + frame_chunk, t)
-        ids = np.concatenate([np.arange(i, end),
-                              np.full(frame_chunk - (end - i), i)])
-        ids = torch.as_tensor(ids, device=device)
-        chunks.append((fuse_chunk(logits_dev[:, ids], ids, gt, ts, pack),
-                       i, end))
-    pending = PendingIndexMasks(chunks, t, h, w, packed=pack)
+    with tracing.span("fuse", device=device, frames=t):
+        gt = torch.as_tensor(np.asarray(gt_masks) > 0.5, device=device)
+        ts = torch.as_tensor(np.asarray(gt_ts, np.int64), device=device)
+        pack = m <= 15
+        chunks = []
+        for i in range(0, t, frame_chunk):
+            end = min(i + frame_chunk, t)
+            ids = np.concatenate([np.arange(i, end),
+                                  np.full(frame_chunk - (end - i), i)])
+            ids = torch.as_tensor(ids, device=device)
+            chunks.append((fuse_chunk(logits_dev[:, ids], ids, gt, ts, pack),
+                           i, end))
+        pending = PendingIndexMasks(chunks, t, h, w, packed=pack)
     return pending if defer else pending.get()
 
 
@@ -271,6 +279,19 @@ class _PendingVideo(NamedTuple):
 
 
 def evaluate(cfg) -> Dict:
+    """The evaluation `cfg` composes. With `trace_output` set, the port's
+    tracer (`utils/tracing.py`) records the run, and its spans are written
+    there as Chrome trace-event JSON once the last video's masks are in."""
+    if not cfg.get("trace_output"):
+        return _evaluate(cfg)
+    tracing.enable()
+    try:
+        return _evaluate(cfg)
+    finally:
+        tracing.disable()
+
+
+def _evaluate(cfg) -> Dict:
     seed_all(cfg.get("seed", 72))
 
     if cfg.get("output_timestamped", False):
@@ -559,6 +580,9 @@ def evaluate(cfg) -> Dict:
         total_process_time += time.perf_counter() - t0
         _save_pngs(prev_video, final_masks)
         prev_video = None
+    if cfg.get("trace_output"):
+        tracing.write(cfg["trace_output"])
+        print(f"Trace: {cfg['trace_output']}")
 
     fps = total_frames / total_process_time if total_process_time > 0 else 0.0
     print(f"Total processing time: {total_process_time:.2f}s")
@@ -652,7 +676,8 @@ def main():
     on the CPU): `model.data_parallel=true` splits
     SAM's batches and `model.point_tracker.time_parallel=true` a video's
     frames over the ranks, which all evaluate every video; rank r > 0
-    writes under `<output>_rank<r>`, so no two ranks write one file."""
+    writes under `<output>_rank<r>` and its trace, with `trace_output`
+    set, to `<stem>_rank<r><suffix>`, so no two ranks write one file."""
     overrides = [a for a in sys.argv[1:] if "=" in a]
     cfg = compose(CONFIG_DIR, "vos_eval_root", overrides)
     cfg = resolve_interpolations(cfg)
@@ -662,6 +687,9 @@ def main():
         if rank:
             cfg = copy.copy(cfg)
             cfg["output"] = f"{cfg['output']}_rank{rank}"
+            if cfg.get("trace_output"):
+                stem, suffix = path.splitext(cfg["trace_output"])
+                cfg["trace_output"] = f"{stem}_rank{rank}{suffix}"
     return evaluate(cfg)
 
 

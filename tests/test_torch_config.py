@@ -2,7 +2,8 @@
 against `yaml.safe_load` (exact equality), its composition of
 `sam_pt_torch/configs/vos_eval_root.yaml` against the JAX composition of
 `configs/vos_eval_root.yaml` (equal once the JAX `_target_`s name the port
-and the `device`/`platform` keys are set aside), every port config's
+and the `device`/`platform` and the port's `trace_output` keys are set
+aside), every port config's
 targets bound to their keys, and the default model instantiated from the
 composed config on the CPU."""
 import glob
@@ -82,9 +83,11 @@ def _as_port(node):
 
 
 def _without_device(node):
+    """`node` without the port's own keys: `device`, and the tracer's
+    `trace_output`."""
     if isinstance(node, dict):
         return {k: _without_device(v) for k, v in node.items()
-                if k != "device"}
+                if k not in ("device", "trace_output")}
     if isinstance(node, list):
         return [_without_device(v) for v in node]
     return node
@@ -100,6 +103,7 @@ def test_compose_equals_the_jax_compose(overrides):
     got = compose(CONFIG_DIR, "vos_eval_root", overrides)
     ref = j_compose(JAX_CONFIGS, "vos_eval_root", overrides)
     assert got["device"] == "cuda" and ref["platform"] is None
+    assert got["trace_output"] is None and "trace_output" not in ref
     assert _without_device(got) == _as_port(ref)
     got = resolve_interpolations(got, runtime_cwd=CWD)
     assert _without_device(got) == _as_port(j_resolve(ref, runtime_cwd=CWD))

@@ -420,12 +420,18 @@ def test_cli_under_torchrun_with_data_and_time_parallel(davis, tmp_path):
                       *args, "+dist_backend=gloo",
                       "model.data_parallel=true",
                       "model.point_tracker.time_parallel=true",
-                      f"output={tmp_path / 'world'}"],
+                      f"output={tmp_path / 'world'}",
+                      f"trace_output={tmp_path / 'trace.json'}"],
             "one": [sys.executable, *args, f"output={tmp_path / 'one'}"]}
     for name, cmd in runs.items():
         proc = subprocess.run(cmd, cwd=str(tmp_path), env=env,
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, (name, proc.stderr[-3000:])
+    for trace in ("trace.json", "trace_rank1.json"):  # a file a rank
+        with open(tmp_path / trace) as f:
+            videos = [e["args"]["video"] for e in json.load(f)["traceEvents"]
+                      if e["name"] == "video"]
+        assert len(videos) == len(names), (trace, videos)
     for name in names:
         world = _index_masks(tmp_path / "world" / name)
         assert world and all(np.array_equal(world[f], m) for f, m in

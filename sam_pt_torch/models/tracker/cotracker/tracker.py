@@ -17,6 +17,7 @@ from ....ops.sampling import bilinear_sample
 from ....utils import tracing
 from ....utils.checkpoint import load_or_randomize_
 from ..api import PointTracker, encode_in_chunks
+from .graphs import WindowGraphs
 from .model import CoTracker
 
 
@@ -41,7 +42,8 @@ class CoTrackerPointTracker(PointTracker):
     module that is already built comes in by `model=` (then
     `checkpoint_path`, `s`, `stride`, `dtype` and the rest of the weights'
     keys are not read). `add_debug_visualisations` is accepted and unused,
-    as in the JAX package."""
+    as in the JAX package. On CUDA each window's model call is the replay
+    of a CUDA graph (`graphs.py`); off it, the model runs as it is."""
 
     def __init__(self, checkpoint_path: Optional[str] = None,
                  interp_shape=(384, 512),
@@ -71,6 +73,7 @@ class CoTrackerPointTracker(PointTracker):
         self.s = model.s
         self.stride = model.stride
         self._fmap_cache = None
+        self.windows = WindowGraphs()
 
     def _track(self, fmaps: torch.Tensor, queries: torch.Tensor, t: int,
                direction: str = "forward"):
@@ -115,9 +118,9 @@ class CoTrackerPointTracker(PointTracker):
             vis_init = torch.where(fresh, torch.full_like(vis[init_idx], 10.0),
                                    vis[init_idx])
             with tracing.span("track.window", direction=direction, tracks=n):
-                coords_w, vis_w, _ = self.model(
-                    fmaps[frames], coords_init, feats, tm, iters=self.iters,
-                    vis_init=vis_init, active=active)
+                coords_w, vis_w = self.windows(
+                    self.model, fmaps, frames, coords_init, feats, tm,
+                    vis_init, active, iters=self.iters)
             write = (real[:, None] * active[None, :].float()) > 0
             traj[ind:ind + s] = torch.where(write[..., None], coords_w,
                                             traj[ind:ind + s])

@@ -23,12 +23,11 @@ def control(cell, seed: int, device) -> dict:
     """The control's numbers for `cell` (a `registry.Cell`) and `seed`."""
     from benchmark.harness import check, traffic, weights
 
-    config = cell.config
-    ckpt = weights.checkpoints(config, cell.reference().param_shapes(config),
-                               seed, device)
+    config, ref = cell.config, cell.reference()
+    ckpt = weights.checkpoints(config, ref.param_shapes(config), seed, device)
     videos = traffic.cycle(cell.traffic, seed, device)
-    outputs = check.control_outputs(config, ckpt, videos, seed, device)
-    numbers = check.compare(config, ckpt, outputs, seed, device)
+    outputs = check.control_outputs(ref, config, ckpt, videos, seed, device)
+    numbers = check.compare(ref, config, ckpt, outputs, seed, device)
     numbers["launch_faults"] = 0
     correct, _ = check.verdict(numbers, config["limits"])
     return {"seed": seed, "numbers": numbers, "correct": correct}

@@ -40,13 +40,17 @@ schedule) is compared with the same limit of 0.
 
 A control runs the same reference one precision below the configuration's
 (`ops.LOWER`) in the program's place, and is compared the same way.
+
+Every model-specific step is a call on the configuration's reference
+module (`registry.Cell.reference`), passed in as `ref`; this file names
+none. Embeddings may be one tensor [T, ...] or a dict of them (HQ-SAM's
+{'emb', 'interm'}), compared leaf by leaf.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..reference import pipeline as ref
 from ..reference.ops import LOWER, Precision, no_tf32
 
 NAMES = ("query_faults", "embed_rel_l2", "track_px", "vis_flips",
@@ -64,14 +68,27 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def compare(config: dict, checkpoints: dict, kept: list, seed: int,
+def _leaves(emb) -> dict:
+    """An embedding's tensors by key (one tensor: the key None)."""
+    return emb if isinstance(emb, dict) else {None: emb}
+
+
+def _frame(emb, i):
+    """Frame `i` of embeddings [T, ...], or of each tensor of a dict."""
+    if isinstance(emb, dict):
+        return {key: e[i] for key, e in emb.items()}
+    return emb[i]
+
+
+def compare(ref, config: dict, checkpoints: dict, kept: list, seed: int,
             device) -> dict:
-    """`kept`: per video of the first pass, a dict with the video ('image',
-    'query_masks', 'query_point_timestep', 'target_hw'), the program's
-    'query_points', 'embeddings', 'trajectories', 'visibilities',
-    'logits', 'scores_per_frame' and 'masks' (index masks). Returns the
-    worst reading of each number over the videos and their object slots
-    (the exact ones summed)."""
+    """`ref`: the configuration's reference module. `kept`: per video of
+    the first pass, a dict with the video ('image', 'query_masks',
+    'query_point_timestep', 'target_hw'), the program's 'query_points',
+    'embeddings', 'trajectories', 'visibilities', 'logits',
+    'scores_per_frame' and 'masks' (index masks). Returns the worst
+    reading of each number over the videos and their object slots (the
+    exact ones summed)."""
     draws = config["check"]
     sd_sam = {k: v.float() for k, v in checkpoints["sam"].items()}
     sd_tr = {k: v.float() for k, v in checkpoints["tracker"].items()}
@@ -93,9 +110,11 @@ def compare(config: dict, checkpoints: dict, kept: list, seed: int,
 
             frames = draw(seed + v_i, t, draws["frames_per_video"])
             emb = ref.embeddings(video[frames], sd_sam, config)
-            for j, f in enumerate(frames):
-                worst["embed_rel_l2"] = max(worst["embed_rel_l2"], _rel_l2(
-                    k["embeddings"][f], emb[j]))
+            got = _leaves(k["embeddings"])
+            for key, want in _leaves(emb).items():
+                for j, f in enumerate(frames):
+                    worst["embed_rel_l2"] = max(worst["embed_rel_l2"],
+                                                _rel_l2(got[key][f], want[j]))
 
             traj_r, vis_r, prob_r = ref.tracks(video, qp, sd_tr, config)
             traj_p = k["trajectories"].float()
@@ -115,7 +134,7 @@ def compare(config: dict, checkpoints: dict, kept: list, seed: int,
                     pts, lbl = ref.prompt(traj_p[f], vis_p[f], obj, n_pos,
                                           others)
                     logits_r, iou_r, visible = ref.decode(
-                        emb[j], pts, lbl, hw, sd_sam, config)
+                        _frame(emb, j), pts, lbl, hw, sd_sam, config)
                     iou_r, iou_p = float(iou_r), float(scores_p[f, obj])
                     if visible and np.isfinite(iou_p):
                         iou_gaps.append(abs(iou_p - iou_r))
@@ -145,9 +164,9 @@ def compare(config: dict, checkpoints: dict, kept: list, seed: int,
     return worst
 
 
-def control_outputs(config: dict, checkpoints: dict, videos: list, seed: int,
-                    device) -> list:
-    """The reference one precision below the configuration's, in the
+def control_outputs(ref, config: dict, checkpoints: dict, videos: list,
+                    seed: int, device) -> list:
+    """The reference `ref` one precision below the configuration's, in the
     program's place, over `videos`: the fields `compare` reads, on the
     frames it draws for `seed` (the other frames' planes are gated). The
     query points are a plain sampler's (positives spread over the mask,
@@ -170,10 +189,7 @@ def control_outputs(config: dict, checkpoints: dict, videos: list, seed: int,
             qp = plain_query_points(masks, ts, n_pos,
                                     settings["negative_points_per_mask"])
             frames = draw(seed + v_i, t, config["check"]["frames_per_video"])
-            grid = config["sam"]["image_size"] // config["sam"]["patch_size"]
-            emb = torch.zeros((t, grid, grid, config["sam"]["out_chans"]),
-                              device=device)
-            emb[frames] = ref.embeddings(video[frames], sd_sam, config, p_sam)
+            emb = ref.video_embeddings(video, frames, sd_sam, config, p_sam)
             traj, vis, _ = ref.tracks(video, qp, sd_tr, config, p_tr)
             m = masks.shape[0]
             logits = torch.full((m, t, h, w), -torch.inf, device=device)
@@ -182,8 +198,8 @@ def control_outputs(config: dict, checkpoints: dict, videos: list, seed: int,
                 for obj in range(m):
                     pts, lbl = ref.prompt(traj[f], vis[f], obj, n_pos, settings[
                         "add_other_objects_positive_points_as_negative_points"])
-                    lg, iou, visible = ref.decode(emb[f], pts, lbl, (h, w),
-                                                  sd_sam, config, p_sam)
+                    lg, iou, visible = ref.decode(_frame(emb, f), pts, lbl,
+                                                  (h, w), sd_sam, config, p_sam)
                     if not visible:
                         continue
                     spf[f, obj] = iou

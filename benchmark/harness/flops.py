@@ -226,7 +226,9 @@ def video_flops(config: dict, frames: int, objects: int, hw) -> dict:
         tokens + 2, True)
     if tracker["name"] == "cotracker":
         track = cotracker_flops(tracker, frames, points)
-    else:
+    elif tracker["name"] == "pips":
         track = pips_flops(tracker, frames, points, hw)
+    else:
+        raise ValueError(f"no FLOP count for the tracker {tracker['name']!r}")
     return {"encode": frames * vit_flops(config["sam"]), "track": track,
             "decode": pairs * dec}

@@ -20,7 +20,7 @@ from collections import defaultdict
 
 import torch
 
-from . import check, flops, registry, traffic, weights
+from . import check, registry, traffic, weights
 from .trace import Launches, Spans, reduce_profile
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "sam_pt_tpu")
@@ -44,10 +44,11 @@ def forbidden_modules() -> list:
 class Window:
     """The VOS harness over the cycle, video by video, with the first
     pass's outputs kept for the comparison and each video's kernel
-    launches held to the schedule."""
+    launches held to the schedule of the configuration's `reference`."""
 
-    def __init__(self, system, harness, config, videos, device):
+    def __init__(self, system, harness, reference, config, videos, device):
         self.system, self.harness = system, harness
+        self.reference = reference
         self.config, self.videos = config, videos
         self.device = device
         self.index = 0
@@ -74,8 +75,8 @@ class Window:
     def expected_launches(self, video) -> dict:
         if self.device.type != "cuda":
             return dict.fromkeys(("window", "global", "cross", "relpos"), 0)
-        return flops.launch_schedule(self.config["sam"], self.config["sam_pt"],
-                                     video["frames"], video["objects"])
+        return self.reference.launch_schedule(self.config, video["frames"],
+                                              video["objects"])
 
     def step(self) -> None:
         """The next video of the cycle."""
@@ -155,7 +156,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float,
     log(f"setup {setup_s:.3f} s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()) + f" (kernels {built})")
 
-    window = Window(system, harness, config, videos, device)
+    window = Window(system, harness, reference, config, videos, device)
     record = Record()
     start = time.perf_counter()
     if trace:
@@ -177,8 +178,9 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float,
     if trace:
         plain = [videos[i % len(videos)] for i in range(plain_done, window.done)]
         record.model = {
-            "flops": sum(sum(flops.video_flops(config, v["frames"], v["objects"],
-                                               v["target_hw"]).values())
+            "flops": sum(sum(reference.video_flops(config, v["frames"],
+                                                   v["objects"],
+                                                   v["target_hw"]).values())
                          for v in plain),
             "wall": end - plain_start}
     log(f"window {wall:.3f} s, {window.done} videos, {window.frames} frames, "
@@ -205,7 +207,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers = check.compare(config, ckpt, kept, seed, device)
+    numbers = check.compare(reference, config, ckpt, kept, seed, device)
     numbers["launch_faults"] = launch_faults
     log(f"check {time.perf_counter() - t_check:.1f} s")
     correct, rows = check.verdict(numbers, config["limits"])

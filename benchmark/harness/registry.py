@@ -1,8 +1,27 @@
 """Finds what a cell is made of by the names in BENCHMARK.json: the
 configuration's file, the traffic mix's file, the system adapter and
 reference the configuration names, and the reader of each per-layer
-metric. A later cell, mix or metric is a new file and a new entry here;
-no code changes."""
+metric. A later mix or metric is a new file and a new entry in
+BENCHMARK.json; no code changes.
+
+A new configuration (another SAM variant or tracker) adds:
+  - its file under `configs/`, whose `reference` and `system` keys name
+    the two modules below;
+  - a reference module under `reference/` with the functions that
+    `check.py` and `main.py` call on it: `param_shapes(config)`,
+    `query_point_faults(query_points, masks, timesteps, n_pos)`,
+    `embeddings(frames, sd, config, p)` (a tensor [F, ...] or a dict of
+    them), `video_embeddings(video, frames, sd, config, p)`,
+    `tracks(video, query_points, sd, config, p)`, `threshold(config)`,
+    `visibility(traj, prob, hw, config)`, `prompt(traj, vis, obj, n_pos,
+    other_positives)`, `decode(emb, points, labels, hw, sd, config, p)`,
+    `fuse(logits, gt, gt_ts)`, `launch_schedule(config, frames, objects)`
+    and `video_flops(config, frames, objects, hw)`; it may import
+    `pipeline` and replace only what differs;
+  - a system file under `systems/` only where `build_sam` or
+    `build_tracker` of `systems/sam_pt.py` differs: it imports that file
+    and composes its own `build` from the two.
+No file of the harness changes."""
 from __future__ import annotations
 
 import importlib.util

@@ -1,6 +1,7 @@
 """The whole step's share of the H100's bf16 peak: the model FLOPs of the
-videos of the traced run's plain part (`flops.video_flops`: the encoder,
-the tracker and every decoder pass at its own token count) over that
+videos of the traced run's plain part (the configuration's reference's
+`video_flops`; SAM-PT's: the encoder, the tracker and every decoder pass
+at its own token count) over that
 part's wall time times 989 TFLOP/s, in percent. The plain part runs
 without spans or the profiler, so nothing slowed its wall."""
 from benchmark.harness import flops

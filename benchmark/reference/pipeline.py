@@ -1,8 +1,11 @@
 """The reference's entry points for a SAM-PT configuration: the checkpoint
-names and shapes it runs on, and the plain computation of each layer that
+names and shapes it runs on, the plain computation of each layer that
 the benchmark compares (query points, embeddings, tracks, decode chain,
-fusion).
+fusion), and the yardstick's counts for the configuration (the kernel
+launches a video should make, its model FLOPs).
 
+These are the functions that `harness/check.py` and `harness/main.py`
+call on a configuration's `reference` module (`registry.py` lists them).
 Nothing here imports the program under test: the benchmark hands both
 sides the same frames, masks and state dicts.
 """
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..harness import flops
 from . import sam, trackers
 from .ops import F32, Precision
 
@@ -47,6 +51,19 @@ def query_point_faults(query_points: np.ndarray, masks: np.ndarray,
 def embeddings(frames: torch.Tensor, sd: dict, config: dict,
                p: Precision = F32) -> torch.Tensor:
     return sam.encode(frames, sd, config["sam"], p)
+
+
+def video_embeddings(video: torch.Tensor, frames: list, sd: dict,
+                     config: dict, p: Precision = F32) -> torch.Tensor:
+    """Embeddings of every frame of `video` [T, H, W, 3] as the program
+    hands them out: the reference's on `frames`, zero on the others (the
+    control's; the comparison reads only the drawn frames)."""
+    s = config["sam"]
+    grid = s["image_size"] // s["patch_size"]
+    emb = torch.zeros((video.shape[0], grid, grid, s["out_chans"]),
+                      device=video.device)
+    emb[frames] = embeddings(video[frames], sd, config, p)
+    return emb
 
 
 def threshold(config: dict) -> float:
@@ -141,3 +158,14 @@ def first_argmax(x: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(x.shape[0], device=x.device).reshape(
         -1, *[1] * (x.ndim - 1))
     return torch.where(x == best, idx, x.shape[0]).min(0).values
+
+
+def launch_schedule(config: dict, frames: int, objects: int) -> dict:
+    """The kernel launches of one video of `frames` x `objects`."""
+    return flops.launch_schedule(config["sam"], config["sam_pt"], frames,
+                                 objects)
+
+
+def video_flops(config: dict, frames: int, objects: int, hw) -> dict:
+    """Model FLOPs of one video by part."""
+    return flops.video_flops(config, frames, objects, hw)

@@ -46,20 +46,26 @@ def _on_meta(make):
         return make()
 
 
-def build(config: dict, weights: dict, device: torch.device):
-    """SamPt with the configuration's SAM and tracker, holding `weights`
-    ({"sam": state dict, "tracker": state dict}) as they are."""
+def build_sam(config: dict, weights: dict):
+    """The predictor of the configuration's SAM, holding `weights["sam"]`
+    as it is."""
     from sam_pt_torch.models.sam.predictor import SamPredictor
     from sam_pt_torch.models.sam.sam_model import Sam
-    from sam_pt_torch.models.sam_pt import SamPt
 
-    sam_cfg, tr = config["sam"], config["tracker"]
+    sam_cfg = config["sam"]
     encoder = {k: sam_cfg[k] for k in ("embed_dim", "depth", "num_heads",
                                        "global_attn_indexes", "window_size",
                                        "mlp_ratio", "patch_size")}
     sam_model = _on_meta(lambda: Sam(encoder, image_size=sam_cfg["image_size"]))
     sam_model.load_state_dict(weights["sam"], strict=True, assign=True)
     sam_model.to(DTYPES[sam_cfg["dtype"]]).eval().requires_grad_(False)
+    return SamPredictor(sam_model)
+
+
+def build_tracker(config: dict, weights: dict, device: torch.device):
+    """The configuration's point tracker, holding `weights["tracker"]` as
+    it is."""
+    tr = config["tracker"]
     if tr["name"] == "cotracker":
         from sam_pt_torch.models.tracker.cotracker.model import CoTracker
         from sam_pt_torch.models.tracker.cotracker.tracker import (
@@ -68,13 +74,13 @@ def build(config: dict, weights: dict, device: torch.device):
         model = _on_meta(lambda: CoTracker(s=tr["s"], stride=tr["stride"]))
         model.load_state_dict(weights["tracker"], strict=True, assign=True)
         model.to(DTYPES[tr["dtype"]]).eval().requires_grad_(False)
-        tracker = CoTrackerPointTracker(
+        return CoTrackerPointTracker(
             interp_shape=tuple(tr["interp_shape"]),
             visibility_threshold=tr["visibility_threshold"],
             support_grid_size=tr["support_grid_size"],
             support_grid_every_n_frames=tr["support_grid_every_n_frames"],
             iters=tr["iters"], model=model)
-    elif tr["name"] == "pips":
+    if tr["name"] == "pips":
         from sam_pt_torch.models.tracker.pips.tracker import PipsPointTracker
 
         # The tracker builds its own model; the checkpoint then replaces
@@ -86,13 +92,29 @@ def build(config: dict, weights: dict, device: torch.device):
             encode_chunk=tr["encode_chunk"], dtype=DTYPES[tr["dtype"]],
             allow_random_init=True, device=device)
         tracker.model.load_state_dict(weights["tracker"], strict=True)
-    else:
-        raise ValueError(f"no SAM-PT tracker {tr['name']!r}")
-    sam_pt = SamPt(point_tracker=tracker, sam_predictor=SamPredictor(sam_model),
+        return tracker
+    raise ValueError(f"no SAM-PT tracker {tr['name']!r}")
+
+
+def assemble(config: dict, predictor, tracker, device: torch.device):
+    """SamPt over `predictor` and `tracker` with the configuration's
+    settings, checked to be on `device`."""
+    from sam_pt_torch.models.sam_pt import SamPt
+
+    sam_pt = SamPt(point_tracker=tracker, sam_predictor=predictor,
                    **config["sam_pt"])
     if sam_pt.device != device:
         raise RuntimeError(f"SamPt is on {sam_pt.device}, not {device}")
     return sam_pt
+
+
+def build(config: dict, weights: dict, device: torch.device):
+    """SamPt with the configuration's SAM and tracker, holding `weights`
+    ({"sam": state dict, "tracker": state dict}) as they are. A system
+    file for another SAM or tracker imports this one and replaces
+    `build_sam` or `build_tracker` in its own `build`."""
+    return assemble(config, build_sam(config, weights),
+                    build_tracker(config, weights, device), device)
 
 
 def launch_counts() -> dict:

@@ -12,10 +12,10 @@ import time
 import pytest
 import torch
 
-from benchmark.harness import flops, main, registry, traffic, weights
+from benchmark.harness import main, registry, traffic, weights
 from benchmark.tests.faults import CARD_FAULTS, GATE_DECIDES
 
-CELLS = ["vith_cotracker.davis17", "vitb_pips.davis17"]
+CELLS = [w["name"] for w in registry.benchmark()["workloads"]]
 SHORT = {"frame_hw": [480, 854], "cycle": [[12, 2, "short"]],
          "boxes": [[110, 360], [150, 120]], "warm_frames": 4}
 
@@ -45,16 +45,14 @@ def test_launches_equal_the_schedule(name):
     cell = registry.Cell(name, traffic=dict(SHORT))
     system = cell.system()
     system.load_kernels()
-    config = cell.config
-    ckpt = weights.checkpoints(config, cell.reference().param_shapes(config),
-                               5, device)
+    config, ref = cell.config, cell.reference()
+    ckpt = weights.checkpoints(config, ref.param_shapes(config), 5, device)
     harness = system.Harness(system.build(config, ckpt, device))
     video = traffic.cycle(SHORT, 5, device)[0]
     system.reset_launch_counts()
     harness.process(video)
     harness.resolve()
-    assert system.launch_counts() == flops.launch_schedule(
-        config["sam"], config["sam_pt"], 12, 2)
+    assert system.launch_counts() == ref.launch_schedule(config, 12, 2)
 
 
 def _run(name, fault, device, seed=2 ** 31 + 11):

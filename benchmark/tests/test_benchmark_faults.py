@@ -7,11 +7,11 @@ import time
 import pytest
 import torch
 
-from benchmark.harness import main
+from benchmark.harness import main, registry
 from benchmark.tests import tiny
 from benchmark.tests.faults import FAULTS, GATE_DECIDES
 
-CELLS = ["vith_cotracker.davis17", "vitb_pips.davis17"]
+CELLS = [w["name"] for w in registry.benchmark()["workloads"]]
 SEED = 2 ** 31 + 7
 
 

@@ -5,8 +5,11 @@ SAM's mask decoder plus a fifth mask token (the HQ token), a
 high-resolution feature path built from the image embedding and an early
 encoder output (`interm`: the first global block's output of a ViT, the
 pre-neck stage-3 output of TinyViT), and an HQ mask head on the fused
-features. The token layout is [iou, sam0, multi1..3, hq]; the decoder's
-cross-attention runs kernel K3 with the one more output token. Parameter
+features. The path's image-level part (`image_features`) depends on the
+image alone: `forward` computes it for its batch, `forward_features`
+takes it computed once a frame. The token layout is [iou, sam0,
+multi1..3, hq]; the decoder's cross-attention runs kernel K3 with the one
+more output token. Parameter
 names follow `segment_anything_hq` (`mask_decoder.hf_token`,
 `hf_mlp.layers.j`, `embedding_encoder`, `compress_vit_feat` and
 `embedding_maskfeature` at `.0`, `.1`, `.3`), so a public
@@ -57,11 +60,33 @@ class MaskDecoderHQ(MaskDecoder):
         self.embedding_maskfeature = _upscale_block(c // 8, c // 4, c // 8,
                                                     False)
 
+    def image_features(self, image_embeddings: torch.Tensor,
+                       interm_embeddings: torch.Tensor) -> torch.Tensor:
+        """The image-level HQ features [B, 4H, 4W, C/8] of embeddings
+        [B, H, W, C] and early features [B, H, W, vit_dim]: what the
+        published decoder computes once an image and repeats over its
+        prompts (`hq_features`)."""
+        dtype = image_embeddings.dtype
+        return (_apply_block(self.embedding_encoder, image_embeddings)
+                + _apply_block(self.compress_vit_feat,
+                               interm_embeddings.to(dtype)))
+
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
                 interm_embeddings, prompt_valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (mask logits [B, 5, 4H, 4W] for tokens [sam0, multi1..3,
         hq], iou_pred [B, 4]); `select_hq_masks` combines them."""
+        return self.forward_features(
+            image_embeddings, image_pe, sparse_prompt, dense_prompt,
+            self.image_features(image_embeddings, interm_embeddings),
+            prompt_valid)
+
+    def forward_features(self, image_embeddings, image_pe, sparse_prompt,
+                         dense_prompt, hq_features: torch.Tensor,
+                         prompt_valid: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`forward` with the image-level features `hq_features` [B, 4H,
+        4W, C/8] (`image_features`) given, computed once a frame."""
         b = sparse_prompt.shape[0]
         out_tokens = torch.cat([self.iou_token.weight,
                                 self.mask_tokens.weight,
@@ -74,12 +99,6 @@ class MaskDecoderHQ(MaskDecoder):
             token_valid = torch.cat([
                 torch.ones((b, n_out), dtype=torch.bool,
                            device=prompt_valid.device), prompt_valid], dim=1)
-
-        dtype = image_embeddings.dtype
-        hq_features = (
-            _apply_block(self.embedding_encoder, image_embeddings)
-            + _apply_block(self.compress_vit_feat,
-                           interm_embeddings.to(dtype)))
 
         src = image_embeddings + dense_prompt
         hs, src_out = self.transformer(src, image_pe, tokens, token_valid)

@@ -6,7 +6,9 @@ prompt-set) pairs with label -1 padding, in model-input coordinates;
 `predict` does the same from original image pixels and picks SAM's single
 or multimask output tokens. `scale_coords` maps original pixels to
 model-input coordinates. With an HQ-SAM model the embeddings are
-{'emb', 'interm'} dicts (`Sam.encode_images`), passed on as they are.
+{'emb', 'interm'} dicts (`Sam.encode_images`), passed on as they are;
+`hq_features` gives the decoder's image-level features of such a dict,
+which `decode` takes as {'emb', 'hq'}.
 
 With a `mesh` (`parallel.mesh.Mesh`, every rank running the same calls),
 `encode_frames` and `decode` take this rank's slice of the batch along
@@ -102,6 +104,20 @@ class SamPredictor:
                 frames.float(), target_hw, antialias=self.antialias))
 
         return self._sharded(encode, images)
+
+    @torch.no_grad()
+    def hq_features(self, embeddings: dict) -> torch.Tensor:
+        """HQ-SAM's {'emb', 'interm'} embeddings [B, ...] -> the decoder's
+        image-level features [B, 4g, 4g, 32]
+        (`MaskDecoderHQ.image_features`), which `decode` reads from
+        {'emb', 'hq': these} without recomputing them."""
+        model = self.model
+
+        def features(emb):
+            return model.mask_decoder.image_features(
+                emb["emb"].to(model.dtype), emb["interm"])
+
+        return self._sharded(features, embeddings)
 
     def scale_coords(self, coords: torch.Tensor,
                      original_hw: Tuple[int, int]) -> torch.Tensor:

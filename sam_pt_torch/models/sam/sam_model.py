@@ -33,11 +33,13 @@ class Sam(nn.Module):
     package; ViT encoders only): the encoder runs only on the tokens that
     cover the resized frame, and the embedding is zero off it. `use_hq`
     takes HQ-SAM's decoder, which also reads the encoder's early features:
-    embeddings are then {'emb', 'interm'} dicts; `hq_token_only` keeps the
-    HQ mask alone in the single-mask output. `tp_axis` names the mesh
-    axis a ViT encoder's heads and MLP are sharded over and `dp_axis` the
-    one frames are split over on a 2-D (data x model) mesh, as the JAX
-    model's do; `SamPredictor(mesh=...)` shards the encoder
+    embeddings are then {'emb', 'interm'} dicts, or {'emb', 'hq'} with the
+    decoder's image-level features computed once
+    (`SamPredictor.hq_features`); `hq_token_only` keeps the HQ mask alone
+    in the single-mask output. `tp_axis` names the mesh axis a ViT
+    encoder's heads and MLP are sharded over and `dp_axis` the one frames
+    are split over on a 2-D (data x model) mesh, as the JAX model's do;
+    `SamPredictor(mesh=...)` shards the encoder
     (`parallel/tensor_parallel.py`). TinyViT refuses `tp_axis`.
     """
 
@@ -140,10 +142,14 @@ class Sam(nn.Module):
         image_pe = self.prompt_encoder.get_dense_pe(points.device)
         dtype = self.dtype
         if self.use_hq:
-            masks, iou_pred = self.mask_decoder(
-                image_embeddings["emb"].to(dtype), image_pe.to(dtype),
-                sparse.to(dtype), dense.to(dtype), image_embeddings["interm"],
-                prompt_valid)
+            emb = image_embeddings["emb"].to(dtype)
+            features = image_embeddings.get("hq")
+            if features is None:
+                features = self.mask_decoder.image_features(
+                    emb, image_embeddings["interm"])
+            masks, iou_pred = self.mask_decoder.forward_features(
+                emb, image_pe.to(dtype), sparse.to(dtype), dense.to(dtype),
+                features.to(dtype), prompt_valid)
             masks, iou_pred = masks.float(), iou_pred.float()
             # HQ-SAM's single-mask result as token 0, SAM's multimask
             # tokens 1-3 as they are: the layout callers read.

@@ -1,7 +1,8 @@
 """SAM-PT orchestrator (counterpart of `sam_pt_tpu/models/sam_pt.py`).
 
 Per video: upload once; embed every frame with the batched SAM encoder
-(once, for every path below); take query masks (sample query points from
+(once, for every path below; with HQ-SAM, its decoder's image-level
+features too, once a frame); take query masks (sample query points from
 them on the host) or query points (decode each one's query frame with SAM
 into a query mask, as the JAX package does); then
 
@@ -261,6 +262,8 @@ class SamPt:
         with tracing.span("upload", bytes=images.nbytes):
             images_dev = torch.from_numpy(images).to(self.device)
         emb = self._encode_all_frames(images_dev)
+        if isinstance(emb, dict):
+            emb = self._hq_features_device(emb)
 
         if video.get("query_masks") is not None:
             if video.get("query_points") is not None:
@@ -392,8 +395,33 @@ class SamPt:
                                   padded_frames=pad):
                     emb = self.sam_predictor.encode_frames(self._shard(chunk),
                                                            (h, w))
-                chunks.append(emb_map(lambda e: e[:ec - pad], emb))
+                    emb = emb_map(lambda e: e[:ec - pad], emb)
+                    if isinstance(emb, dict):
+                        tracing.count("interm_bytes", emb["interm"].nbytes)
+                chunks.append(emb)
             return emb_map(lambda *c: torch.cat(c, dim=0), *chunks)
+
+    def _hq_features_device(self, embeddings: dict) -> dict:
+        """HQ-SAM's {'emb', 'interm'} embeddings [T, ...] -> {'emb', 'hq'}:
+        the decoder's image-level features [T, 4g, 4g, 32], computed once
+        a frame (as the published decoder does once an image) in chunks
+        of `sam_encode_chunk` frames (the last padded with its final
+        frame), in place of the early features, which are then released.
+        The decode chain gathers them per pair."""
+        emb = embeddings["emb"]
+        t, ec = emb.shape[0], self.sam_encode_chunk
+        chunks = []
+        with tracing.span("hq", frames=t):
+            for i in range(0, t, ec):
+                chunk = emb_map(lambda e: e[i:i + ec], embeddings)
+                n = chunk["emb"].shape[0]
+                if n < ec:
+                    chunk = emb_map(lambda e: torch.cat(
+                        [e, e[-1:].expand(ec - n, *e.shape[1:])]), chunk)
+                chunks.append(self.sam_predictor.hq_features(chunk)[:n])
+            hq = torch.cat(chunks)
+            tracing.count("bytes", hq.nbytes)
+        return {"emb": emb, "hq": hq}
 
     def _track_points_device(self, images_dev, query_points, hw):
         """Track in mask batches; with `use_patch_matching_filtering`, the
@@ -529,6 +557,8 @@ class SamPt:
             # The chain's decoder calls count themselves (`passes`).
             with tracing.span("decode.chunk", pairs=nb,
                               padded_pairs=chunk - nb):
+                if isinstance(emb, dict) and "hq" in emb:
+                    tracing.count("hq_pairs", nb)
                 up, iou = chain(emb, self._shard(pts_flat[idx]),
                                 self._shard(lbl_flat[idx]), hw)
             ups.append(up[:nb])

@@ -10,6 +10,7 @@ refinements) with decode chunks of 5, so that the last chunk is padded.
   counts of the video, of the chunks and of CoTracker's windows, and each
   span's start within 1 ms of its `sam_pt:` range's start.
 - Tracing on and off give bitwise-equal outputs.
+- HQ-SAM: the `hq` span and the `interm_bytes` and `hq_pairs` counts.
 - Fusion's download keeps the video it was made for; K3 counts its
   launches, pairs and keys only while tracing is on; the VOS CLI's
   `trace_output` writes Chrome trace-event JSON.
@@ -24,6 +25,7 @@ from PIL import Image
 from torch.profiler import ProfilerActivity, profile
 
 from sam_pt_torch.models.sam.predictor import SamPredictor
+from sam_pt_torch.models.sam.sam_model import Sam
 from sam_pt_torch.models.sam_pt import SamPt
 from sam_pt_torch.models.tracker.cotracker.model import CoTracker
 from sam_pt_torch.models.tracker.cotracker.tracker import (
@@ -32,7 +34,12 @@ from sam_pt_torch.models.tracker.cotracker.tracker import (
 from sam_pt_torch.ops import _cuda
 from sam_pt_torch.ops import flash_attention as fa
 from sam_pt_torch.utils import tracing
-from sam_pt_torch.utils.testing import build_tiny_sam, build_tiny_sam_pt
+from sam_pt_torch.utils.checkpoint import randomize_
+from sam_pt_torch.utils.testing import (
+    TINY_VIT,
+    build_tiny_sam,
+    build_tiny_sam_pt,
+)
 from sam_pt_torch.vos_eval import eval as t_eval
 from torch_port_helpers import (
     TINY_COTRACKER,
@@ -57,7 +64,9 @@ def _settings(tracker):
     return settings
 
 
-def _sam_pt(tracker):
+def _sam_pt(tracker, hq=False):
+    """With `hq`, the tiny ViT with HQ-SAM's decoder in place of the tiny
+    SAM (CoTracker only)."""
     settings = _settings(tracker)
     if tracker == "pips":
         return build_tiny_sam_pt(device="cpu", **settings)
@@ -68,8 +77,12 @@ def _sam_pt(tracker):
     model.load_state_dict(torch_sd(sd))
     cotracker = CoTrackerPointTracker(
         model=model.eval().requires_grad_(False), **TINY_TRACKER)
-    return SamPt(cotracker, SamPredictor(build_tiny_sam(device="cpu")),
-                 **settings)
+    sam = build_tiny_sam(device="cpu")
+    if hq:
+        sam = randomize_(Sam(TINY_VIT, image_size=64, use_hq=True),
+                         torch.Generator().manual_seed(19))
+        sam.eval().requires_grad_(False)
+    return SamPt(cotracker, SamPredictor(sam), **settings)
 
 
 def _video(video_id=None):
@@ -193,6 +206,30 @@ def test_spans_nest_count_and_share_the_profilers_clock(model):
     assert [n for _, n in ranges] == [n for _, n in starts]
     gaps = [abs(a - b) for (a, _), (b, _) in zip(ranges, starts)]
     assert max(gaps) < 1_000_000, max(gaps)
+
+
+def test_hq_span_counts_frames_features_and_pairs():
+    """HQ-SAM: the `hq` span, under `video` between `encode` and `query`,
+    counts the video's frames once and the bytes of the image-level
+    features it holds; each `encode.chunk` counts the bytes of its early
+    features (`interm_bytes`), each `decode.chunk` its pairs as
+    `hq_pairs`."""
+    sam_pt = _sam_pt("cotracker", hq=True)
+    tracing.enable()
+    _forward(sam_pt, _video("clip"))
+    spans = tracing.export()
+    root = spans.index(_one(spans, "video"))
+    assert [s["name"] for s in _children(spans, root)] == [
+        "upload", "encode", "hq", "query", "track", "decode"]
+    # the tiny ViT: a 4 x 4 grid of 32 wide; features 16 x 16 x 32, float32
+    assert _one(spans, "hq")["counts"] == {"frames": T,
+                                           "bytes": T * 16 * 16 * 32 * 4}
+    chunks = [s["counts"] for s in spans if s["name"] == "encode.chunk"]
+    assert [c["interm_bytes"] for c in chunks] == [
+        c["frames"] * 4 * 4 * 32 * 4 for c in chunks]
+    chunks = [s["counts"] for s in spans if s["name"] == "decode.chunk"]
+    assert all(c["hq_pairs"] == c["pairs"] for c in chunks)
+    assert sum(c["hq_pairs"] for c in chunks) == T * 2
 
 
 def test_outputs_equal_with_tracing_on_and_off(model):

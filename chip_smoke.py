@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero before the verdict line:
      kernel and that call also over 50 back-to-back calls (`loop_ms`,
      with the host's time a call to queue them) and, with --profile, by
      the profiler's device time (`profiled_ms`), beside the kernel's bound
-     (`attention_roofline`).
+     (`attention_roofline`). Then K5 (the channel LayerNorm with its GELU)
+     at the decode chain's shapes (`LN_CASES`), held to the same
+     tolerance, its yardstick one `F.layer_norm` (+ `F.gelu`) call and its
+     bound the bytes alone (`bytes_roofline`).
   3b. Helpers phase: the JAX package's last public helpers on the card:
      `evaluate_batch` / `unpack_results` of the main path's CoTracker
      (8 frames of 480 x 854, 16 points; bit-equal to `forward`, one
@@ -32,11 +35,11 @@ Phases, in order; any failure exits non-zero before the verdict line:
      are visible and masks pass the IoU gate) over two DAVIS-shaped 480 x 854
      videos (24 frames x 1 object, 35 x 3), then device fusion to uint8
      index masks. Launch counts are reset just before and read just after,
-     and must equal the schedule's counts. A second, timed pass gives the
-     wall time and frames/s.
+     and must equal the schedule's counts (K5's: `layer_norm_schedule`).
+     A second, timed pass gives the wall time and frames/s.
   5. Reference phase: the first video's first encode chunk and first
      decode chunk again, with the kernels' plain versions in place of the
-     kernels, against the kernel outputs.
+     kernels (K5's too), against the kernel outputs.
   6. Query-points phase: the main-path SamPt over a 24 x 1 video given as
      17 query points on frame 0, with the same checks.
   7. K4 route phase: one ViT-H-width `Attention` (1280 wide, 16 heads x
@@ -203,7 +206,9 @@ and tokens, `cross_attention_amg` at phase 18's generator batch,
 (K3 at head dim 32, the decoder's self-attention from 1024 tokens) at
 its capacity run's, `window_attention_tp2` and `global_attention_tp2`
 (K1/K2 at 8 heads x 80) with a rank's launches in phase 21's TP encode,
-each held to its plain version), and as the last line {"ok": true,
+`layer_norm` (K5 at HQ-SAM's `embedding_maskfeature` and, suffixed, the
+upscaling's and `norm4`'s shapes) with the slice's K5 launches, each held
+to its plain version), and as the last line {"ok": true,
 "device": {...}}. The kernel phase alone:
 
     python3 -c "import torch, chip_smoke; from sam_pt_torch.ops import \
@@ -257,6 +262,13 @@ DECODER_TOKENS = 5
 # cores and HBM3 bandwidth.
 PEAK_BF16_FLOP_S = 989e12
 PEAK_BYTES_S = 3.35e12
+# K5's cases, the decode chain's norms at a chunk of 48 pairs: name ->
+# (shape, gelu). HQ-SAM's `embedding_maskfeature` (LayerNorm2d(64) and GELU
+# at 256 x 256), the upscaling's (at 128 x 128) and the two-way
+# transformer's `norm4` over the image's 4096 rows of 256.
+LN_CASES = {"layer_norm_hq": ((48, 256, 256, 64), True),
+            "layer_norm_upscaling": ((48, 128, 128, 64), True),
+            "layer_norm_norm4": ((48, 4096, 256), False)}
 
 
 def log(msg: str) -> None:
@@ -349,6 +361,15 @@ def attention_roofline(problems: int, nq: int, nk: int, d: int,
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def bytes_roofline(nbytes: int) -> dict:
+    """The least time one H100 could take to move `nbytes` (each input
+    read once, the output written once): K5's bound. Its operations (about
+    30 float32 ones a value with the GELU's erf, on the CUDA cores) are
+    not counted: they take less time than the bytes, if not much less."""
+    return {"flop": None, "bytes": nbytes,
+            "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
 
 
 def materialised_bias(bias_h, bias_w):
@@ -596,6 +617,51 @@ def kernel_cases(fa, device) -> dict:
             "cross_self": cross_self}
 
 
+def layer_norm_cases(device) -> dict:
+    """K5's cases (`LN_CASES`) as `kernel_cases` makes its own: the
+    kernel, its plain version (PyTorch's LayerNorm, then GELU, as the port
+    ran them before), one `F.layer_norm` (+ `F.gelu`) call, the inputs, and
+    the bound's function of the bytes, in bf16."""
+    import torch.nn.functional as F
+
+    from sam_pt_torch.ops import layer_norm as ln
+
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def case(shape, gelu):
+        c = shape[-1]
+        x = (2 * torch.randn(shape, generator=g, device=device)
+             + 0.5).bfloat16()
+        w = (1 + 0.2 * torch.randn(c, generator=g, device=device)).bfloat16()
+        b = (0.2 * torch.randn(c, generator=g, device=device)).bfloat16()
+
+        def library():
+            y = F.layer_norm(x, (c,), w, b, 1e-6)
+            return F.gelu(y) if gelu else y
+
+        return (lambda: ln.layer_norm_cuda(x, w, b, 1e-6, gelu=gelu),
+                lambda: ln.layer_norm_plain(x, w, b, 1e-6, gelu=gelu),
+                library, (x, w, b), bytes_roofline)
+
+    return {name: (lambda s=shape, gl=gelu: case(s, gl))
+            for name, (shape, gelu) in LN_CASES.items()}
+
+
+def layer_norm_schedule(sam_pt, encodes, decodes) -> int:
+    """K5 launches of encode calls over `encodes` frames each and decode
+    calls over `decodes` pairs each: the neck's two LayerNorm2d(256) an
+    encode chunk (HQ-SAM: two more, its image-level features); a decoder
+    pass's ten (the two-way transformer's nine token and image norms, the
+    upscaling's), two more in every pass after the first (the mask
+    path's), one more with HQ-SAM (`embedding_maskfeature`)."""
+    ec, dc = sam_pt.sam_encode_chunk, sam_pt.sam_decode_chunk
+    enc = sum(-(-t // ec) for t in encodes)
+    dec = sum(-(-n // min(dc, n)) for n in decodes)
+    passes = 2 + sam_pt.iterative_refinement_iterations
+    hq = int(sam_pt.sam_predictor.model.use_hq)
+    return 2 * (1 + hq) * enc + dec * ((10 + hq) * passes + 2 * (passes - 1))
+
+
 def crop_grid(image_size: int = 1024) -> tuple:
     """The rows and columns of SAM's 16-pixel tokens that cover an H x W
     frame after the longest-side resize to `image_size`: 36 x 64 of 64 x 64
@@ -724,14 +790,17 @@ def kernel_phase(fa, device, profiling: bool = False) -> dict:
             f"(occupancy calculator)")
         if blocks < 1:
             raise SystemExit("K3 image->token cannot run at SAM's heads")
-    return measure_cases(kernel_cases(fa, device), profiling)
+    report = measure_cases(kernel_cases(fa, device), profiling)
+    report.update(measure_cases(layer_norm_cases(device), profiling))
+    return report
 
 
 def measure_cases(cases: dict, profiling: bool = False) -> dict:
     """Each case of `cases` (made as `kernel_cases` makes them), one at a
     time: agreement with the plain version, times (with `profiling`, also
-    the profiler's device time), bound. Fails at the first case that
-    disagrees."""
+    the profiler's device time), bound (`attention_roofline` of the case's
+    (problems, nq, nk, d), or the case's own function of the bytes moved).
+    Fails at the first case that disagrees."""
     report = {}
     for name, make in cases.items():
         kernel, plain, library, inputs, shape = make()
@@ -742,7 +811,11 @@ def measure_cases(cases: dict, profiling: bool = False) -> dict:
         err = float(diff.max())
         ratio = float((diff / (ATOL + RTOL * ref.float().abs())).max())
         ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0
-        roof = attention_roofline(*shape, tensor_bytes(*inputs, got))
+        nbytes = tensor_bytes(*inputs, got)
+        roof = (shape(nbytes) if callable(shape)
+                else attention_roofline(*shape, nbytes))
+        flop = ("" if roof["flop"] is None
+                else f"{roof['flop'] / 1e9:.2f} GFLOP, ")
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain)
         library_ms = cuda_ms(library)
@@ -763,7 +836,7 @@ def measure_cases(cases: dict, profiling: bool = False) -> dict:
             f"{kernel_host:.4f} and {library_host:.4f} ms a call to queue "
             f"them){profiled}; bound "
             f"{roof['bound_ms']:.4f} ms by {roof['bound_by']} "
-            f"({roof['flop'] / 1e9:.2f} GFLOP, {roof['bytes'] / 1e6:.1f} MB; "
+            f"({flop}{roof['bytes'] / 1e6:.1f} MB; "
             f"{100 * roof['bound_ms'] / ms:.1f}% of it) "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
@@ -1012,7 +1085,9 @@ def check_outputs(out, masks, n_frames, n_masks, n_points, query_ts=None):
 @contextlib.contextmanager
 def plain_route(fa):
     """The kernels' plain versions in their wrappers' place (K3's key mask
-    as bool), until the block ends."""
+    as bool; K5's too), until the block ends."""
+    from sam_pt_torch.ops import layer_norm as ln
+
     plain = {
         "window_attention_cuda": fa.window_attention_plain,
         "global_attention_cuda": fa.global_attention_plain,
@@ -1022,13 +1097,16 @@ def plain_route(fa):
                 else kv_valid.bool(), **kw),
     }
     saved = {name: getattr(fa, name) for name in plain}
+    saved_ln = ln.layer_norm_cuda
     try:
         for name, fn in plain.items():
             setattr(fa, name, fn)
+        ln.layer_norm_cuda = ln.layer_norm_plain
         yield
     finally:
         for name, fn in saved.items():
             setattr(fa, name, fn)
+        ln.layer_norm_cuda = saved_ln
 
 
 def rel_l2(a, b) -> float:
@@ -2842,6 +2920,10 @@ def vis_phase(fa, card: str, model=VIS_MODEL,
             device_profile("vis_video0", lambda: adapter([video]), card)
 
         capacity = vis_capacity_run(adapter, fa, dataset)
+        # The entry point shares the card: hand back the blocks this
+        # process keeps cached (the capacity run leaves ~79 GB reserved
+        # for 27 GB allocated at most).
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "sam_pt_torch.vis_eval.eval",
@@ -4109,6 +4191,11 @@ KERNEL_SOURCES = {
 }
 
 
+LN_SOURCE = ("sam_pt_torch/csrc/layer_norm.cu",
+             "none (sam_pt_tpu/ops/fast_ln.py is a matrix-unit trick of the "
+             "TPU's)")
+
+
 # Rows of K1 and K2 at ViT-B's shapes, launched by the default model.
 VIT_B_ROWS = ("window", "global")
 
@@ -4117,7 +4204,7 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
                 default_launches: dict, crop_launches: dict,
                 interactive_launches: dict, *, hq_launches: dict,
                 vis_launches: dict, haiku_launches: dict,
-                tp_launches: dict = None) -> list:
+                tp_launches: dict = None, ln_launches: int = None) -> list:
     """The kernel line's rows: per kernel its launches on the main path
     (K4: in the route phase), the worst error of its cases and each
     case's `TIMES`, the second case's with a suffix; then K1 and K2 at
@@ -4140,7 +4227,9 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
     K3 launch of the VIS capacity run, which takes it; then, with
     `tp_launches`, K1 and K2 at ViT-H's heads split over a model axis of
     2 (`_tp2`: 8 heads x 80) with a rank's launches in phase 21's TP
-    encode over a world of 2."""
+    encode over a world of 2; then, with `ln_launches`, K5 (`layer_norm`)
+    at HQ-SAM's `embedding_maskfeature` and, suffixed, the upscaling's and
+    `norm4`'s shapes, with the slice's K5 launches."""
     kernels = []
     for key, (source, replaces) in KERNEL_SOURCES.items():
         r = report[key]
@@ -4215,6 +4304,19 @@ def kernel_json(report: dict, launches: dict, route_launches: dict,
                                        "(world of 2, model axis 2)",
                         "max_abs_err": r["max_abs_err"],
                         **{f: r[f] for f in TIMES}})
+    if ln_launches is not None:
+        cases = list(LN_CASES)
+        row = {"name": "layer_norm", "route": "cuda",
+               "source": LN_SOURCE[0], "replaces": LN_SOURCE[1],
+               "launches": ln_launches,
+               "launches_of": "the slice: the neck's 2 an encode chunk, "
+                              "10-12 a decoder pass",
+               "max_abs_err": max(report[c]["max_abs_err"] for c in cases),
+               **{f: report[cases[0]][f] for f in TIMES}}
+        for c in cases[1:]:
+            row.update({f + c[len("layer_norm"):]: report[c][f]
+                        for f in TIMES})
+        kernels.append(row)
     return kernels
 
 
@@ -4344,6 +4446,7 @@ def main() -> int:
         raise SystemExit(f"sam_pt_torch imported from {sam_pt_torch.__file__}"
                          f", not from this checkout ({here})")
     from sam_pt_torch.ops import flash_attention as fa
+    from sam_pt_torch.ops import layer_norm as ln
 
     build_phase()
     device = torch.device("cuda")
@@ -4363,15 +4466,22 @@ def main() -> int:
     n_points = sam_pt.positive_points_per_mask + sam_pt.negative_points_per_mask
 
     fa.reset_launch_counts()
+    ln.reset_launch_counts()
     outs = [run_video(sam_pt, v, device_fuse_index_masks) for v in videos]
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
+    ln_launches = ln.LAUNCHES["layer_norm"]
     expected = launch_schedule(sam_pt, [t for t, _ in VIDEOS],
                                [t * m for t, m in VIDEOS])
-    log(f"slice: launches {launches} expected {expected}")
+    ln_expected = layer_norm_schedule(sam_pt, [t for t, _ in VIDEOS],
+                                      [t * m for t, m in VIDEOS])
+    log(f"slice: launches {launches} expected {expected}; K5 {ln_launches} "
+        f"expected {ln_expected}")
     if launches != expected or not all(
             launches[k] for k in ("window", "global", "cross")):
         raise SystemExit("launch counts differ from the schedule")
+    if ln_launches != ln_expected:
+        raise SystemExit("K5 launch counts differ from the schedule")
     for (t, m), (out, masks) in zip(VIDEOS, outs):
         log(f"slice: video {t} frames x {m} objects: "
             + check_outputs(out, masks, t, m, n_points))
@@ -4438,7 +4548,7 @@ def main() -> int:
         report, launches, route_launches, default_launches, crop_launches,
         interactive_launches, hq_launches=hq_launches,
         vis_launches=vis_launches, haiku_launches=haiku_launches,
-        tp_launches=tp_launches)}))
+        tp_launches=tp_launches, ln_launches=ln_launches)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

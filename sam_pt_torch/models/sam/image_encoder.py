@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import flash_attention as fa
+from ...ops.layer_norm import layer_norm
 from ...ops.resize import resize_bilinear
 from ...parallel import tensor_parallel as tp
 
@@ -53,15 +54,15 @@ VIT_VARIANTS = {
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last axis in the input's dtype. PyTorch's kernels
-    keep the statistics and the affine in float32 for bf16/f16 inputs and
-    round once at the output, which is the JAX package's FastLayerNorm
-    semantics; parameters are cast to the input's dtype."""
+    """LayerNorm over the last axis in the input's dtype: the statistics
+    and the affine in float32, one rounding at the output, which is the
+    JAX package's FastLayerNorm semantics; parameters are cast to the
+    input's dtype. `gelu`: the exact GELU of that output, rounded again, in
+    the same call. Rows of at most 256 on the card run kernel K5
+    (`ops/layer_norm.py`), wider rows and the CPU PyTorch's LayerNorm."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.normalized_shape,
-                            self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            self.eps)
+    def forward(self, x: torch.Tensor, gelu: bool = False) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, gelu=gelu)
 
 
 class LayerNorm2d(LayerNorm):

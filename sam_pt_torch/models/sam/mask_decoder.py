@@ -180,6 +180,15 @@ class MaskDecoder(nn.Module):
         self.iou_prediction_head = HyperMLP(
             c, iou_head_hidden_dim, self.num_mask_tokens, iou_head_depth)
 
+    def upscale(self, src_out: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """The transformer's image side [B, H*W, C] -> [B, 4H, 4W, C/8]:
+        transposed conv, LayerNorm2d and GELU in one call, transposed conv,
+        GELU."""
+        up = self.output_upscaling
+        x = up[1](conv_nhwc(up[0], src_out.reshape(src_out.shape[0], h, w,
+                                                   -1)), gelu=True)
+        return F.gelu(conv_nhwc(up[3], x))
+
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
                 prompt_valid: Optional[torch.Tensor] = None,
                 only_token0: bool = False):
@@ -202,11 +211,8 @@ class MaskDecoder(nn.Module):
         iou_token_out = hs[:, 0, :]
         mask_tokens_out = hs[:, 1:1 + self.num_mask_tokens, :]
 
-        h, w = image_embeddings.shape[1], image_embeddings.shape[2]
-        up = self.output_upscaling
-        x = conv_nhwc(up[0], src_out.reshape(b, h, w, -1))
-        x = F.gelu(up[1](x))
-        upscaled = F.gelu(conv_nhwc(up[3], x))  # [B, 4H, 4W, C/8]
+        upscaled = self.upscale(src_out, image_embeddings.shape[1],
+                                image_embeddings.shape[2])
 
         n_tok = 1 if only_token0 else self.num_mask_tokens
         hyper_in = torch.stack(

@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .image_encoder import LayerNorm2d, conv_nhwc
@@ -41,9 +40,9 @@ def _upscale_block(cin: int, mid: int, cout: int, transposed: bool
 
 
 def _apply_block(block: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """`_upscale_block` on a channels-last map."""
-    x = block[1](conv_nhwc(block[0], x))
-    return conv_nhwc(block[3], F.gelu(x))
+    """`_upscale_block` on a channels-last map (its LayerNorm2d and GELU
+    in one call)."""
+    return conv_nhwc(block[3], block[1](conv_nhwc(block[0], x), gelu=True))
 
 
 class MaskDecoderHQ(MaskDecoder):
@@ -105,11 +104,8 @@ class MaskDecoderHQ(MaskDecoder):
         iou_token_out = hs[:, 0, :]
         mask_tokens_out = hs[:, 1:n_out, :]
 
-        h, w = image_embeddings.shape[1], image_embeddings.shape[2]
-        up = self.output_upscaling
-        x = conv_nhwc(up[0], src_out.reshape(b, h, w, -1))
-        x = F.gelu(up[1](x))
-        upscaled_sam = F.gelu(conv_nhwc(up[3], x))  # [B, 4H, 4W, C/8]
+        upscaled_sam = self.upscale(src_out, image_embeddings.shape[1],
+                                    image_embeddings.shape[2])
         upscaled_hq = (_apply_block(self.embedding_maskfeature, upscaled_sam)
                        + hq_features)
 

@@ -12,7 +12,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .image_encoder import LayerNorm2d, conv_nhwc
@@ -93,10 +92,8 @@ class PromptEncoder(nn.Module):
     def encode_masks(self, masks: torch.Tensor) -> torch.Tensor:
         """masks [B, 4H, 4W, 1] logits -> dense embedding [B, H, W, C]."""
         md = self.mask_downscaling
-        x = conv_nhwc(md[0], masks.to(md[0].weight.dtype))
-        x = F.gelu(md[1](x))
-        x = conv_nhwc(md[3], x)
-        x = F.gelu(md[4](x))
+        x = md[1](conv_nhwc(md[0], masks.to(md[0].weight.dtype)), gelu=True)
+        x = md[4](conv_nhwc(md[3], x), gelu=True)
         return conv_nhwc(md[6], x)
 
     def no_mask_dense(self, batch: int) -> torch.Tensor:

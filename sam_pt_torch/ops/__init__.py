@@ -1,6 +1,7 @@
 """The port's array operations (counterpart of `sam_pt_tpu/ops/`), with
 the JAX package's exports. The attention kernels' wrappers are in
-`flash_attention`, their build in `_cuda`; neither is imported here."""
+`flash_attention`, the LayerNorm kernel's in `layer_norm`, their build in
+`_cuda`; none is imported here."""
 from .sampling import (
     bilinear_sample,
     bilinear_sample_nchw,

@@ -31,6 +31,7 @@ BUILD_INFO: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (see the .cu sources for meanings)
 _SIGNATURES = {
     "sam_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -39,6 +40,8 @@ _SIGNATURES = {
                             _P],
     "sam_relpos_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _P],
+    "sam_layer_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _F,
+                       _I, _I, _P],
     "sam_window_blocks_per_sm": [_I, _I, _I],
     "sam_flash_blocks_per_sm": [_I, _I, _I],
     "sam_cross_i2t_blocks_per_sm": [_I, _I, _I],

@@ -112,14 +112,32 @@ ROWS = {
         _bytes((32, 4096, 128), (32, 457, 128), (32, 457, 128),
                (32, 4096, 128), extra=32 * 457),
         30.60, 74.6, 0.03094, "operations"),
+    # K5 at a decode chunk of 48 pairs, bytes alone (no attention shape):
+    # the rows read and written once, gamma and beta of C values each.
+    # HQ-SAM's `embedding_maskfeature`: LayerNorm2d(64) + GELU at 256 x 256
+    "K5 HQ maskfeature": (None, _bytes((48, 256, 256, 64), (64,), (64,),
+                                       (48, 256, 256, 64)),
+                          None, 805.3, 0.2404, "bytes"),
+    # the upscaling's LayerNorm2d(64) + GELU at 128 x 128
+    "K5 upscaling": (None, _bytes((48, 128, 128, 64), (64,), (64,),
+                                  (48, 128, 128, 64)),
+                     None, 201.3, 0.0601, "bytes"),
+    # the two-way transformer's norm4 over the image's 4096 rows of 256
+    "K5 norm4": (None, _bytes((48, 4096, 256), (256,), (256,),
+                              (48, 4096, 256)),
+                 None, 201.3, 0.0601, "bytes"),
 }
 
 
 @pytest.mark.parametrize("row", list(ROWS))
 def test_roofline_matches_hand_counts(row):
     shape, nbytes, gflop, mb, bound_ms, bound_by = ROWS[row]
-    roof = chip_smoke.attention_roofline(*shape, nbytes)
-    assert roof["flop"] / 1e9 == pytest.approx(gflop, abs=0.01)
+    if shape is None:
+        roof = chip_smoke.bytes_roofline(nbytes)
+        assert roof["flop"] is None
+    else:
+        roof = chip_smoke.attention_roofline(*shape, nbytes)
+        assert roof["flop"] / 1e9 == pytest.approx(gflop, abs=0.01)
     assert roof["bytes"] / 1e6 == pytest.approx(mb, abs=0.05)
     assert roof["bound_ms"] == pytest.approx(bound_ms, abs=5e-4)
     assert roof["bound_by"] == bound_by
@@ -196,7 +214,7 @@ CASES = ("window", "global", "cross", "cross_masked", "cross_unmasked",
          "relpos", "relpos_window", "window_vit_b", "global_vit_b",
          "global_crop", "cross_interactive", "cross_hq", "cross_hq_masked",
          "cross_amg", "cross_amg_masked", "cross_self", "cross_vis",
-         "cross_vis_masked")
+         "cross_vis_masked", *chip_smoke.LN_CASES)
 CROP_LAUNCHES = {"window": 168, "global": 24, "cross": 70, "relpos": 0}
 INTERACTIVE_LAUNCHES = {"window": 48, "global": 24, "cross": 15400,
                         "relpos": 0}
@@ -247,6 +265,55 @@ def test_kernel_json_rows_carry_both_timers(key):
     assert row["max_abs_err"] == max(report[c]["max_abs_err"]
                                      for c in checked)
     assert row["launches"] == (1 if key == "relpos" else launches[key])
+
+
+def test_kernel_json_layer_norm_row():
+    """K5's row: the slice's launches, the worst error of its three
+    cases, the HQ case's times and, suffixed, the upscaling's and
+    norm4's; no row without launches."""
+    report = _report()
+    args = (report, {"window": 420, "global": 60, "cross": 280,
+                     "relpos": 0}, {"relpos": 1},
+            {"window": 48, "global": 24, "cross": 140}, CROP_LAUNCHES,
+            INTERACTIVE_LAUNCHES)
+    kw = dict(hq_launches=HQ_LAUNCHES, vis_launches=VIS_LAUNCHES,
+              haiku_launches=HAIKU_LAUNCHES)
+    assert "layer_norm" not in {
+        r["name"] for r in chip_smoke.kernel_json(*args, **kw)}
+    rows = {r["name"]: r for r in chip_smoke.kernel_json(
+        *args, ln_launches=2410, **kw)}
+    row = rows["layer_norm"]
+    assert row["launches"] == 2410
+    assert (row["source"], row["replaces"]) == chip_smoke.LN_SOURCE
+    assert row["max_abs_err"] == max(report[c]["max_abs_err"]
+                                     for c in chip_smoke.LN_CASES)
+    for f in chip_smoke.TIMES:
+        assert row[f] == report["layer_norm_hq"][f]
+        assert row[f + "_upscaling"] == report["layer_norm_upscaling"][f]
+        assert row[f + "_norm4"] == report["layer_norm_norm4"][f]
+
+
+@pytest.mark.parametrize("hq", [False, True])
+def test_layer_norm_schedule_counts_the_models_narrow_norms(monkeypatch, hq):
+    """K5's schedule against the LayerNorm calls of a tiny SamPt's run on
+    the CPU outside the ViT blocks (whose rows, 768-1280 at ViT-B/L/H,
+    take PyTorch's kernel): the neck's, the prompt encoder's and the
+    decoder's, 4 passes a decode chunk."""
+    from sam_pt_torch.models.sam.image_encoder import LayerNorm
+
+    monkeypatch.setattr(chip_smoke, "H", 48)
+    monkeypatch.setattr(chip_smoke, "W", 80)
+    sam_pt = (_tiny_variant("samhq_vit_h") if hq else _tiny_variant("sam"))
+    sam_pt.sam_decode_chunk = 4
+    model = sam_pt.sam_predictor.model
+    blocks = set(model.image_encoder.blocks.modules())
+    calls = []
+    for m in model.modules():
+        if isinstance(m, LayerNorm) and m not in blocks:
+            m.register_forward_hook(lambda *a: calls.append(1))
+    with torch.no_grad():
+        sam_pt.forward(chip_smoke.make_video(6, 2, seed=0))
+    assert len(calls) == chip_smoke.layer_norm_schedule(sam_pt, [6], [12])
 
 
 @pytest.mark.parametrize("key", chip_smoke.VIT_B_ROWS)

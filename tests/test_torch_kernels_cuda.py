@@ -18,11 +18,17 @@ f32 sums in another order and ex2.approx may tip a rounding (one output
 ulp is up to 2^-7 relative), so two ulps, plus 1e-2 for values near zero.
 K4's two routes through one `Attention` agree within 1e-2 relative L2
 (the same body, bias einsums in two layouts).
+
+K5 (`ops/layer_norm.py`) against `F.layer_norm` (and `F.gelu`) at the
+decode chain's shapes, in bfloat16 and float32, to one output ulp: see
+`_within_one_ulp`.
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sam_pt_torch.ops import flash_attention as fa
+from sam_pt_torch.ops import layer_norm as ln
 
 ATOL, RTOL = 1e-2, 2 ** -6
 
@@ -267,3 +273,178 @@ class TestKernelsOnCard:
             fa.cross_attention(q.float(), kv.float(), kv.float(), heads=2,
                                divisor=4.0)
         assert fa.LAUNCHES["cross"] == 1
+
+
+# K5 cases: name -> (shape, gelu). The decode chain's norms at a chunk of
+# 48 pairs: the upscaling's LayerNorm2d(64) at 128 x 128 and HQ-SAM's
+# `embedding_maskfeature` at 256 x 256, the prompt encoder's mask path (4
+# channels at 128 x 128, 16 at 64 x 64), `norm4` over the image's 4096
+# rows and the token norms over 61 rows; the neck's LayerNorm2d(256) at a
+# chunk of 4 frames; ragged row counts; rows of 160 (TinyViT) and of 20,
+# widths that are not a power of two, which the kernel reads a value at a
+# time.
+LN_CASES = {
+    "hq_maskfeature": ((48, 256, 256, 64), True),
+    "upscaling": ((48, 128, 128, 64), True),
+    "mask_in_4": ((48, 128, 128, 4), True),
+    "mask_in_16": ((48, 64, 64, 16), True),
+    "norm4": ((48, 4096, 256), False),
+    "tokens": ((48, 61, 256), False),
+    "neck": ((4, 64, 64, 256), False),
+    "ragged_rows": ((3, 1009, 64), True),
+    "ragged_rows_4": ((7, 37, 4), True),
+    "width_160": ((5, 77, 160), False),
+    "width_20": ((3, 1001, 20), True),
+}
+# A few float32 ulps (2^-23) of a value of order 1.
+LN_ATOL = 2 ** -18
+
+
+def _row_scale(x, eps=1e-6):
+    """max |x| / sqrt(var + eps) of each row of x, at least 1: the factor by
+    which float32 rounding of x and of its mean grows in (x - mean) / std
+    (a row of 4 values close together has a large one)."""
+    xf = x.float()
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    return (xf.abs().amax(-1, keepdim=True) * torch.rsqrt(var + eps)
+            ).clamp_min(1)
+
+
+def _within_one_ulp(got, ref, atol=LN_ATOL):
+    """|got - ref| <= one ulp of ref in its dtype + atol. The kernel takes
+    the row's mean and then its centred sum of squares in float32;
+    PyTorch's kernel takes both by Welford's update, in another order. The
+    two float32 values of a normalised value differ by a few float32 ulps
+    times the row's scale (`_row_scale`), and rounding them to the output
+    dtype tips at most one ulp, except for values within a few 1e-6 of
+    zero, where the absolute term holds (in float32 outputs it is the few
+    ulps themselves). The GELU after it is compared with `F.gelu` of the
+    kernel's own norm: the same input values, so the absolute term covers
+    only values within 1e-5 of zero."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    mant = {torch.bfloat16: 8, torch.float32: 24}[ref.dtype]
+    r = ref.float()
+    _, exp = torch.frexp(r)
+    ulp = torch.where(r == 0, torch.zeros_like(r),
+                      torch.ldexp(torch.ones_like(r), exp - mant))
+    excess = (got.float() - r).abs() - ulp - atol
+    assert torch.isfinite(got.float()).all()
+    worst = float(excess.max())
+    assert worst <= 0, f"worst |got - ref| exceeds one ulp + atol by {worst}"
+
+
+def _ln_inputs(gen, shape, dtype, strided=False):
+    """x (with `strided`, a channels-first tensor seen channels-last, as a
+    conv's NCHW output is), weight ~ 1 +- 0.2, bias +- 0.2, in `dtype`."""
+    c = shape[-1]
+    if strided:
+        nchw = torch.randn((shape[0], c, *shape[1:-1]), generator=gen,
+                           device="cuda")
+        x = (2 * nchw + 0.5).permute(0, *range(2, len(shape)), 1)
+    else:
+        x = 2 * torch.randn(shape, generator=gen, device="cuda") + 0.5
+    w = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+@pytest.mark.cuda
+class TestLayerNormOnCard:
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("case", list(LN_CASES))
+    def test_layer_norm_k5(self, gen, case, dtype):
+        """The norm to one ulp of `F.layer_norm`; with the GELU, the fused
+        output to one ulp of `F.gelu` of the kernel's own norm (the GELU
+        of a value one ulp off may move by more than one ulp)."""
+        shape, gelu = LN_CASES[case]
+        x, w, b = _ln_inputs(gen, shape, dtype)
+        ln.reset_launch_counts()
+        norm = ln.layer_norm_cuda(x, w, b, 1e-6)
+        out = ln.layer_norm_cuda(x, w, b, 1e-6, gelu=gelu)
+        torch.cuda.synchronize()
+        assert ln.LAUNCHES["layer_norm"] == 2 and out.is_contiguous()
+        _within_one_ulp(norm, F.layer_norm(x, (shape[-1],), w, b, 1e-6),
+                        LN_ATOL * _row_scale(x))
+        _within_one_ulp(out, F.gelu(norm) if gelu else norm)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("case", ["mask_in_4", "mask_in_16", "upscaling",
+                                      "tokens"])
+    def test_layer_norm_k5_strided(self, gen, case, dtype):
+        """A channels-first tensor seen channels-last (channels H x W
+        apart, as the mask path's first conv leaves it) is read through
+        its strides, with no copy in front; the output is contiguous."""
+        shape, gelu = LN_CASES[case]
+        x, w, b = _ln_inputs(gen, shape, dtype, strided=True)
+        assert not x.is_contiguous()
+        norm = ln.layer_norm_cuda(x, w, b, 1e-6)
+        out = ln.layer_norm_cuda(x, w, b, 1e-6, gelu=gelu)
+        torch.cuda.synchronize()
+        assert out.is_contiguous() and out.shape == x.shape
+        _within_one_ulp(norm, F.layer_norm(x, (shape[-1],), w, b, 1e-6),
+                        LN_ATOL * _row_scale(x))
+        _within_one_ulp(out, F.gelu(norm) if gelu else norm)
+
+    def test_layer_norm_k5_row_slices(self, gen):
+        """Every other row of a map and a crop of it: rows apart by more
+        than a row, in leading axes that do not merge."""
+        x, w, b = _ln_inputs(gen, (6, 64, 64, 64), torch.bfloat16)
+        for view in (x[:, ::2], x[:, 3:40, 5:61]):
+            got = ln.layer_norm_cuda(view, w, b, 1e-6, gelu=True)
+            torch.cuda.synchronize()
+            _within_one_ulp(
+                ln.layer_norm_cuda(view.contiguous(), w, b, 1e-6,
+                                   gelu=True), got)
+
+    @pytest.mark.parametrize("hq", [False, True])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_layer_norm_launches_of_a_decoder_pass(self, gen, hq, masked):
+        """One decoder pass launches K5 10 times (the two-way transformer's
+        9 norms, the upscaling's), 2 more with a mask input (the mask
+        path's two) and 1 more with HQ-SAM (`embedding_maskfeature`); the
+        tracer's `ln.launches` in the open span counts the same."""
+        from sam_pt_torch.models.sam.sam_model import build_sam
+        from sam_pt_torch.utils import tracing
+
+        torch.manual_seed(0)
+        model = build_sam("vit_b", dtype=torch.bfloat16, device="cuda",
+                          use_hq=hq)
+        b = 3
+        emb = _randn(gen, b, 64, 64, 256)
+        if hq:
+            emb = {"emb": emb, "hq": _randn(gen, b, 256, 256, 32)}
+        points = 1024 * torch.rand((b, 4, 2), generator=gen, device="cuda")
+        labels = torch.tensor([[1, 1, 0, -1]] * b, device="cuda")
+        mask = (_randn(gen, b, 256, 256, 1).float() if masked else None)
+        ln.reset_launch_counts()
+        tracing.enable()
+        try:
+            with torch.no_grad(), tracing.span("decode.chunk"):
+                masks, iou = model.decode_masks(emb, points, labels, mask)
+            torch.cuda.synchronize()
+            spans = tracing.export()
+        finally:
+            tracing.disable()
+        expected = 10 + 2 * masked + hq
+        assert ln.LAUNCHES["layer_norm"] == expected
+        assert bool(torch.isfinite(masks).all() and torch.isfinite(iou).all())
+        counts = [s for s in spans if s.get("name") == "decode.chunk"]
+        assert counts and counts[0]["counts"]["ln.launches"] == expected
+        assert counts[0]["counts"]["ln.rows"] > 0
+
+    def test_layer_norm_cuda_launches_or_raises(self, gen):
+        """A CUDA tensor of narrow rows never takes the plain path; the
+        wrapper raises on what the kernel does not take."""
+        x, w, b = _ln_inputs(gen, (2, 8, 64), torch.bfloat16)
+        ln.reset_launch_counts()
+        out = ln.layer_norm(x, w.float(), b.float(), 1e-6)
+        torch.cuda.synchronize()
+        assert out.is_cuda and ln.LAUNCHES["layer_norm"] == 1
+        with pytest.raises(TypeError):
+            ln.layer_norm_cuda(x.half(), w.half(), b.half(), 1e-6)
+        with pytest.raises(ValueError):
+            ln.layer_norm_cuda(x, w[:32], b[:32], 1e-6)
+        wide = torch.zeros(2, 8, 768, device="cuda", dtype=torch.bfloat16)
+        ones = torch.ones(768, device="cuda")
+        ln.layer_norm(wide, ones, ones, 1e-6)
+        assert ln.LAUNCHES["layer_norm"] == 1

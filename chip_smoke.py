@@ -1138,8 +1138,10 @@ def chain_check(sam_pt, fa, args, label: str, kernel_out=None) -> None:
 
 def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
     """Encode chunk and decode chunk with kernels vs with plain versions
-    (every part of HQ-SAM's embeddings, `interm` included)."""
-    from sam_pt_torch.models.sam_pt import emb_map
+    (every part of HQ-SAM's embeddings, `interm` included; the chunk
+    decodes them as `decode_ready` makes them, HQ-SAM's features once a
+    frame)."""
+    from sam_pt_torch.utils.tree import tree_map
 
     predictor = sam_pt.sam_predictor
     device = sam_pt.device
@@ -1164,7 +1166,8 @@ def reference_phase(sam_pt, fa, video, label: str = "reference") -> None:
                           dtype=torch.float32, device=device)
     lbl = torch.as_tensor(np.r_[[1] * 16, 0, -1][None].repeat(b, 0),
                           device=device)
-    emb = emb_map(lambda x: x[torch.arange(b, device=device) % 4], emb_k)
+    emb = tree_map(lambda x: x[torch.arange(b, device=device) % 4],
+                   predictor.decode_ready(emb_k))
     chain_check(sam_pt, fa, (emb, pts, lbl, hw), label)
 
 

@@ -5,11 +5,12 @@ configs/vis_eval_root.yaml: a 32 x 32 grid, batches of 64, predicted-IoU
 gate 0.88, stability gate 0.95 with offset 1.0, box NMS 0.7, no crop
 layers).
 
-Per crop, the image is encoded once; the grid is decoded in batches of
+Per crop, the image is encoded once (with HQ-SAM, its decoder's
+image-level features made once too); the grid is decoded in batches of
 `points_per_batch` one-point prompts with multimask output, the embedding
-broadcast over the batch by `expand` (HQ-SAM's {'emb', 'interm'} dicts
-key by key). Both gates run on the device: the predicted IoU (`>`) and
-the stability score, the ratio of two integer pixel counts of the
+broadcast over the batch by `expand` (part by part where it has parts).
+Both gates run on the device: the predicted IoU (`>`) and the stability
+score, the ratio of two integer pixel counts of the
 low-resolution logits taken in float64 (`>=`). Only the survivors are
 upscaled and thresholded there, and come to the host as bool masks. Their
 boxes, the greedy box NMS (within and between crops) and the small-region
@@ -23,7 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..sam_pt import emb_map
+from ...utils.tree import tree_map
 from .predictor import SamPredictor
 
 # 8-connected neighbourhoods, as cv2.connectedComponentsWithStats(..., 8).
@@ -165,10 +166,12 @@ class SamAutomaticMaskGenerator:
     # ------------------------------------------------------------------
     # The stages of a crop, each a method (chip_smoke.py times them).
     def _encode(self, image: np.ndarray):
-        """[h, w, 3] uint8 -> the embedding of one frame, on the device."""
+        """[h, w, 3] uint8 -> the decode-ready embedding of one frame, on
+        the device."""
         frame = torch.from_numpy(np.ascontiguousarray(image[None])).to(
             self.predictor.model.device)
-        return self.predictor.encode_frames(frame, image.shape[:2])
+        return self.predictor.decode_ready(
+            self.predictor.encode_frames(frame, image.shape[:2]))
 
     def _decode(self, emb, points: np.ndarray, hw: Tuple[int, int]):
         """One batch of one-point prompts [B, 2] (original pixels) ->
@@ -176,7 +179,7 @@ class SamAutomaticMaskGenerator:
         multimask tokens, pair-major, on the device."""
         bs = points.shape[0]
         device = self.predictor.model.device
-        emb_b = emb_map(lambda e: e.expand(bs, *e.shape[1:]), emb)
+        emb_b = tree_map(lambda e: e.expand(bs, *e.shape[1:]), emb)
         labels = torch.ones((bs, 1), dtype=torch.long, device=device)
         low, iou, _ = self.predictor.predict(
             emb_b, torch.from_numpy(points[:, None, :]).to(device), labels,

@@ -6,8 +6,9 @@ high-resolution feature path built from the image embedding and an early
 encoder output (`interm`: the first global block's output of a ViT, the
 pre-neck stage-3 output of TinyViT), and an HQ mask head on the fused
 features. The path's image-level part (`image_features`) depends on the
-image alone: `forward` computes it for its batch, `forward_features`
-takes it computed once a frame. The token layout is [iou, sam0,
+image alone and is computed once a frame; `forward_features` decodes
+from it, and there is no path that computes it in a decoder pass
+(`forward` refuses). The token layout is [iou, sam0,
 multi1..3, hq]; the decoder's cross-attention runs kernel K3 with the one
 more output token. Parameter
 names follow `segment_anything_hq` (`mask_decoder.hf_token`,
@@ -70,22 +71,20 @@ class MaskDecoderHQ(MaskDecoder):
                 + _apply_block(self.compress_vit_feat,
                                interm_embeddings.to(dtype)))
 
-    def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
-                interm_embeddings, prompt_valid: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (mask logits [B, 5, 4H, 4W] for tokens [sam0, multi1..3,
-        hq], iou_pred [B, 4]); `select_hq_masks` combines them."""
-        return self.forward_features(
-            image_embeddings, image_pe, sparse_prompt, dense_prompt,
-            self.image_features(image_embeddings, interm_embeddings),
-            prompt_valid)
+    def forward(self, *args, **kwargs):
+        """Refused: `MaskDecoder.forward` would drop the HQ token, and the
+        image-level features are not computed in a decoder pass."""
+        raise TypeError("MaskDecoderHQ decodes through forward_features, "
+                        "from image_features computed once a frame")
 
     def forward_features(self, image_embeddings, image_pe, sparse_prompt,
                          dense_prompt, hq_features: torch.Tensor,
                          prompt_valid: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`forward` with the image-level features `hq_features` [B, 4H,
-        4W, C/8] (`image_features`) given, computed once a frame."""
+        """One decoder pass from the image-level features `hq_features`
+        [B, 4H, 4W, C/8] (`image_features`, computed once a frame).
+        Returns (mask logits [B, 5, 4H, 4W] for tokens [sam0, multi1..3,
+        hq], iou_pred [B, 4]); `select_hq_masks` combines them."""
         b = sparse_prompt.shape[0]
         out_tokens = torch.cat([self.iou_token.weight,
                                 self.mask_tokens.weight,

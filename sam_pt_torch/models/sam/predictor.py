@@ -5,10 +5,12 @@ resize runs on the device); `decode` decodes a batch of (embedding,
 prompt-set) pairs with label -1 padding, in model-input coordinates;
 `predict` does the same from original image pixels and picks SAM's single
 or multimask output tokens. `scale_coords` maps original pixels to
-model-input coordinates. With an HQ-SAM model the embeddings are
-{'emb', 'interm'} dicts (`Sam.encode_images`), passed on as they are;
-`hq_features` gives the decoder's image-level features of such a dict,
-which `decode` takes as {'emb', 'hq'}.
+model-input coordinates. `decode` and `predict` take decode-ready
+embeddings: a plain SAM model's tensor as `encode_frames` gives it, or
+with HQ-SAM {'emb', 'hq'}, made once a frame from the encoder's
+{'emb', 'interm'} (`Sam.encode_images`) by `decode_ready`; its
+`hq_features` is the one place the decoder's image-level features are
+computed.
 
 With a `mesh` (`parallel.mesh.Mesh`, every rank running the same calls),
 `encode_frames` and `decode` take this rank's slice of the batch along
@@ -33,24 +35,8 @@ from ...ops.resize import (
 from ...parallel.mesh import batch_sharding, check_mesh
 from ...parallel.tensor_parallel import shard_params_tp
 from ...utils import tracing
+from ...utils.tree import leading_size, pad_last, tree_map
 from .sam_model import Sam
-
-
-def _pad_batch(x, n: int):
-    """x's leading axis padded to `n` with copies of its last item (a
-    tensor, a dict of them, or None)."""
-    if x is None:
-        return None
-    if isinstance(x, dict):
-        return {k: _pad_batch(v, n) for k, v in x.items()}
-    pad = n - x.shape[0]
-    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
-
-
-def _crop_tree(x, crop):
-    if isinstance(x, dict):
-        return {k: crop(v) for k, v in x.items()}
-    return crop(x)
 
 
 class SamPredictor:
@@ -80,16 +66,16 @@ class SamPredictor:
         padding cropped; `fn(*batch)` without a data axis."""
         if self._batch is None:
             return fn(*batch)
-        first = batch[0]["emb"] if isinstance(batch[0], dict) else batch[0]
-        b = first.shape[0]
+        b = leading_size(batch[0])
         n = -(-b // self._batch.size) * self._batch.size
-        local = [None if x is None else self._batch.shard(_pad_batch(x, n))
+        local = [None if x is None else self._batch.shard(pad_last(x, n))
                  for x in batch]
         out = fn(*local)
-        crop = (lambda a: a[:b]) if n != b else (lambda a: a)
-        if isinstance(out, tuple):
-            return tuple(_crop_tree(self._batch.gather(o), crop) for o in out)
-        return _crop_tree(self._batch.gather(out), crop)
+
+        def whole(o):
+            return tree_map(lambda a: a[:b], self._batch.gather(o))
+
+        return tuple(map(whole, out)) if isinstance(out, tuple) else whole(out)
 
     @torch.no_grad()
     def encode_frames(self, images: torch.Tensor,
@@ -110,7 +96,7 @@ class SamPredictor:
         """HQ-SAM's {'emb', 'interm'} embeddings [B, ...] -> the decoder's
         image-level features [B, 4g, 4g, 32]
         (`MaskDecoderHQ.image_features`), which `decode` reads from
-        {'emb', 'hq': these} without recomputing them."""
+        {'emb', 'hq': these}: the only place they are made."""
         model = self.model
 
         def features(emb):
@@ -118,6 +104,14 @@ class SamPredictor:
                 emb["emb"].to(model.dtype), emb["interm"])
 
         return self._sharded(features, embeddings)
+
+    def decode_ready(self, embeddings):
+        """`encode_frames`'s embeddings as `decode` takes them: a plain
+        SAM's as they are, HQ-SAM's {'emb', 'interm'} as {'emb', 'hq'}
+        (`hq_features`). Take it once a frame, not once a decode."""
+        if not self.model.use_hq:
+            return embeddings
+        return {"emb": embeddings["emb"], "hq": self.hq_features(embeddings)}
 
     def scale_coords(self, coords: torch.Tensor,
                      original_hw: Tuple[int, int]) -> torch.Tensor:
@@ -133,15 +127,14 @@ class SamPredictor:
                labels: torch.Tensor, mask_input: Optional[torch.Tensor] = None,
                mask_valid: Optional[torch.Tensor] = None,
                only_token0: bool = False):
-        """Model-space prompts -> (logits [B, T, 4g, 4g], iou [B, 4]); an
-        HQ-SAM model decodes every token (its token 0 reads the HQ one).
+        """Decode-ready embeddings (`decode_ready`) and model-space prompts
+        -> (logits [B, T, 4g, 4g], iou [B, 4]), as `Sam.decode_masks`.
         Each call counts one of the open span's decoder `passes`."""
         tracing.count("passes")
 
         def decode(emb, pts, lbl, mask, valid):
-            return self.model.decode_masks(
-                emb, pts, lbl, mask, valid,
-                only_token0=only_token0 and not self.model.use_hq)
+            return self.model.decode_masks(emb, pts, lbl, mask, valid,
+                                           only_token0=only_token0)
 
         return self._sharded(decode, embeddings, points, labels, mask_input,
                              mask_valid)
@@ -152,8 +145,9 @@ class SamPredictor:
                 mask_input: Optional[torch.Tensor] = None,
                 mask_valid: Optional[torch.Tensor] = None,
                 multimask_output: bool = False):
-        """Batched predict from original-pixel prompts: embeddings
-        [B, g, g, 256], points [B, N, 2] (x, y), labels [B, N] (-1 = pad).
+        """Batched predict from original-pixel prompts: decode-ready
+        embeddings [B, ...] (`decode_ready`), points [B, N, 2] (x, y),
+        labels [B, N] (-1 = pad).
         Returns (low-res logits [B, K, 4g, 4g], iou [B, K], the token
         slice) with K = 3 (tokens 1-3) if `multimask_output`, else 1
         (token 0)."""

@@ -33,10 +33,10 @@ class Sam(nn.Module):
     package; ViT encoders only): the encoder runs only on the tokens that
     cover the resized frame, and the embedding is zero off it. `use_hq`
     takes HQ-SAM's decoder, which also reads the encoder's early features:
-    embeddings are then {'emb', 'interm'} dicts, or {'emb', 'hq'} with the
-    decoder's image-level features computed once
-    (`SamPredictor.hq_features`); `hq_token_only` keeps the HQ mask alone
-    in the single-mask output. `tp_axis` names the mesh axis a ViT
+    the encoder then gives {'emb', 'interm'} dicts, and the decoder takes
+    {'emb', 'hq'}, its image-level features computed from them once a
+    frame (`SamPredictor.hq_features`); `hq_token_only` keeps the HQ mask
+    alone in the single-mask output. `tp_axis` names the mesh axis a ViT
     encoder's heads and MLP are sharded over and `dp_axis` the one frames
     are split over on a 2-D (data x model) mesh, as the JAX model's do;
     `SamPredictor(mesh=...)` shards the encoder
@@ -114,12 +114,14 @@ class Sam(nn.Module):
             return {"emb": emb, "interm": interm}
         return self.image_encoder(x, **kwargs)
 
-    def decode_masks(self, image_embeddings: torch.Tensor,
+    def decode_masks(self, image_embeddings,
                      points: torch.Tensor, labels: torch.Tensor,
                      mask_input: Optional[torch.Tensor] = None,
                      mask_valid: Optional[torch.Tensor] = None,
                      only_token0: bool = False):
-        """Batched prompt -> mask decoding with padded prompts.
+        """Batched prompt -> mask decoding with padded prompts, from
+        decode-ready embeddings: [B, g, g, 256], or with `use_hq`
+        {'emb': those, 'hq': the image-level features [B, 4g, 4g, 32]}.
 
         Returns (low-res logits [B, T, 4g, 4g], iou_pred [B, 4]) in f32;
         T = 4, or 1 with `only_token0` (ignored with `use_hq`, whose token
@@ -129,6 +131,10 @@ class Sam(nn.Module):
         rows with box corners, every pad slot) is masked out of the
         decoder's token attention.
         """
+        if self.use_hq and "hq" not in image_embeddings:
+            raise ValueError("HQ-SAM decodes {'emb', 'hq'}: take the "
+                             "feature step, SamPredictor.hq_features "
+                             "(decode_ready), once a frame first")
         b = points.shape[0]
         points = torch.cat([points, points.new_zeros((b, 1, 2))], dim=1)
         labels = torch.cat([labels, labels.new_full((b, 1), -1)], dim=1)
@@ -142,14 +148,10 @@ class Sam(nn.Module):
         image_pe = self.prompt_encoder.get_dense_pe(points.device)
         dtype = self.dtype
         if self.use_hq:
-            emb = image_embeddings["emb"].to(dtype)
-            features = image_embeddings.get("hq")
-            if features is None:
-                features = self.mask_decoder.image_features(
-                    emb, image_embeddings["interm"])
             masks, iou_pred = self.mask_decoder.forward_features(
-                emb, image_pe.to(dtype), sparse.to(dtype), dense.to(dtype),
-                features.to(dtype), prompt_valid)
+                image_embeddings["emb"].to(dtype), image_pe.to(dtype),
+                sparse.to(dtype), dense.to(dtype),
+                image_embeddings["hq"].to(dtype), prompt_valid)
             masks, iou_pred = masks.float(), iou_pred.float()
             # HQ-SAM's single-mask result as token 0, SAM's multimask
             # tokens 1-3 as they are: the layout callers read.

@@ -60,21 +60,12 @@ from ..utils.query_points import (
 )
 from ..parallel.mesh import batch_sharding, check_mesh, create_mesh
 from ..utils import tracing
+from ..utils.tree import leading_size, pad_last, tree_map
 from ..utils.util import PointVisibilityType
 from .sam.predictor import SamPredictor
 from .tracker.api import PointTracker
 
 NEG_INF = -float("inf")
-
-
-def emb_map(fn, *embeddings):
-    """`fn` over frame embeddings: tensors [T, ...], or HQ-SAM's
-    {'emb', 'interm'} dicts of them key by key (the JAX package's
-    `_emb_index` through `jax.tree_util.tree_map`). With several
-    arguments, `fn` takes one of each."""
-    if isinstance(embeddings[0], dict):
-        return {k: fn(*(e[k] for e in embeddings)) for k in embeddings[0]}
-    return fn(*embeddings)
 
 
 def build_prompts(traj: torch.Tensor, vis: torch.Tensor, n_pos: int,
@@ -145,7 +136,6 @@ class SamPt:
         fail_on_empty_reinit_mask: bool = False,
         sam_decode_chunk: int = 32,
         sam_encode_chunk: int = 4,
-        upload_chunk: Optional[int] = None,
         seed: int = 72,
         data_parallel: bool = False,
         mesh=None,
@@ -177,9 +167,6 @@ class SamPt:
         self.fail_on_empty_reinit_mask = fail_on_empty_reinit_mask
         self.sam_decode_chunk = sam_decode_chunk
         self.sam_encode_chunk = sam_encode_chunk
-        # Host-to-device upload granularity in the JAX package; the port
-        # uploads each video in one copy, so it is kept and not used.
-        self.upload_chunk = upload_chunk
         # `data_parallel` wires `mesh` (or a mesh of every rank) at the
         # first forward (`_setup_mesh`); `mesh` alone is not used, as in
         # the JAX package.
@@ -215,18 +202,6 @@ class SamPt:
                                               mesh=self.mesh)
         self._data_sharding = batch_sharding(self.mesh)
 
-    def _shard(self, x):
-        """A batch the predictor splits over the mesh's `data` axis, where
-        the JAX package places it sharded: its leading axis must be a
-        multiple of the axis size (the chunks are rounded to one), so the
-        predictor pads nothing. `x` itself (no-op without a mesh)."""
-        if self._data_sharding is not None:
-            b = (x["emb"] if isinstance(x, dict) else x).shape[0]
-            if b % self._data_sharding.size:
-                raise ValueError(f"a chunk of {b} does not split over "
-                                 f"{self._data_sharding.size} ranks")
-        return x
-
     def _replicated(self, x: torch.Tensor) -> torch.Tensor:
         """Rank 0's `x` on every rank of the data axis: the tracker runs
         on every rank, and its outputs drive host decisions that must
@@ -261,9 +236,7 @@ class SamPt:
         self._setup_mesh()
         with tracing.span("upload", bytes=images.nbytes):
             images_dev = torch.from_numpy(images).to(self.device)
-        emb = self._encode_all_frames(images_dev)
-        if isinstance(emb, dict):
-            emb = self._hq_features_device(emb)
+        emb = self._embed(images_dev)
 
         if video.get("query_masks") is not None:
             if video.get("query_points") is not None:
@@ -377,51 +350,58 @@ class SamPt:
                 points.append(pick(m, t))
         return points
 
+    def _embed(self, images_dev: torch.Tensor):
+        """[T, H, W, 3] uint8 -> every frame's embedding as the decoder
+        takes it (`SamPredictor.decode_ready`): `_encode_all_frames`, and
+        with HQ-SAM `_hq_features_device` after it."""
+        emb = self._encode_all_frames(images_dev)
+        if self.sam_predictor.model.use_hq:
+            emb = self._hq_features_device(emb)
+        return emb
+
+    def _frame_chunks(self, fn, frames):
+        """`fn(chunk, n)` over `frames` [T, ...] (a tensor or a dict of
+        them) in chunks of `sam_encode_chunk`, the last padded with its
+        final frame; `fn` returns its chunk's first `n` results, which are
+        concatenated."""
+        ec = self.sam_encode_chunk
+        out = []
+        for i in range(0, leading_size(frames), ec):
+            chunk = tree_map(lambda e: e[i:i + ec], frames)
+            out.append(fn(pad_last(chunk, ec), leading_size(chunk)))
+        return tree_map(lambda *c: torch.cat(c, dim=0), *out)
+
     def _encode_all_frames(self, images_dev: torch.Tensor):
-        """[T, H, W, 3] uint8 -> [T, g, g, 256] (with HQ-SAM, a dict of
-        such), in chunks of `sam_encode_chunk` frames (the last padded with
-        its final frame)."""
+        """[T, H, W, 3] uint8 -> [T, g, g, 256] (with HQ-SAM, the
+        encoder's {'emb', 'interm'} of such), in chunks of
+        `sam_encode_chunk` frames."""
         t, h, w, _ = images_dev.shape
         ec = self.sam_encode_chunk
-        chunks = []
+
+        def encode(chunk, n):
+            with tracing.span("encode.chunk", frames=n, padded_frames=ec - n):
+                emb = self.sam_predictor.encode_frames(chunk, (h, w))
+                emb = tree_map(lambda e: e[:n], emb)
+                if self.sam_predictor.model.use_hq:
+                    tracing.count("interm_bytes", emb["interm"].nbytes)
+            return emb
+
         with tracing.span("encode", frames=t):
-            for i in range(0, t, ec):
-                chunk = images_dev[i:i + ec]
-                pad = ec - chunk.shape[0]
-                if pad:
-                    chunk = torch.cat([chunk,
-                                       chunk[-1:].expand(pad, -1, -1, -1)])
-                with tracing.span("encode.chunk", frames=ec - pad,
-                                  padded_frames=pad):
-                    emb = self.sam_predictor.encode_frames(self._shard(chunk),
-                                                           (h, w))
-                    emb = emb_map(lambda e: e[:ec - pad], emb)
-                    if isinstance(emb, dict):
-                        tracing.count("interm_bytes", emb["interm"].nbytes)
-                chunks.append(emb)
-            return emb_map(lambda *c: torch.cat(c, dim=0), *chunks)
+            return self._frame_chunks(encode, images_dev)
 
     def _hq_features_device(self, embeddings: dict) -> dict:
         """HQ-SAM's {'emb', 'interm'} embeddings [T, ...] -> {'emb', 'hq'}:
         the decoder's image-level features [T, 4g, 4g, 32], computed once
         a frame (as the published decoder does once an image) in chunks
-        of `sam_encode_chunk` frames (the last padded with its final
-        frame), in place of the early features, which are then released.
-        The decode chain gathers them per pair."""
-        emb = embeddings["emb"]
-        t, ec = emb.shape[0], self.sam_encode_chunk
-        chunks = []
-        with tracing.span("hq", frames=t):
-            for i in range(0, t, ec):
-                chunk = emb_map(lambda e: e[i:i + ec], embeddings)
-                n = chunk["emb"].shape[0]
-                if n < ec:
-                    chunk = emb_map(lambda e: torch.cat(
-                        [e, e[-1:].expand(ec - n, *e.shape[1:])]), chunk)
-                chunks.append(self.sam_predictor.hq_features(chunk)[:n])
-            hq = torch.cat(chunks)
+        of `sam_encode_chunk` frames, in place of the early features,
+        which are then released. The decode chain gathers them per
+        pair."""
+        with tracing.span("hq", frames=leading_size(embeddings)):
+            hq = self._frame_chunks(
+                lambda chunk, n: self.sam_predictor.hq_features(chunk)[:n],
+                embeddings)
             tracing.count("bytes", hq.nbytes)
-        return {"emb": emb, "hq": hq}
+        return {"emb": embeddings["emb"], "hq": hq}
 
     def _track_points_device(self, images_dev, query_points, hw):
         """Track in mask batches; with `use_patch_matching_filtering`, the
@@ -552,15 +532,13 @@ class SamPt:
             nb = stop - i
             idx = torch.cat([torch.arange(i, stop, device=device),
                              torch.full((chunk - nb,), i, device=device)])
-            emb = self._shard(emb_map(lambda e: e[emb_flat[idx]],
-                                      embeddings))
+            emb = tree_map(lambda e: e[emb_flat[idx]], embeddings)
             # The chain's decoder calls count themselves (`passes`).
             with tracing.span("decode.chunk", pairs=nb,
                               padded_pairs=chunk - nb):
-                if isinstance(emb, dict) and "hq" in emb:
+                if self.sam_predictor.model.use_hq:
                     tracing.count("hq_pairs", nb)
-                up, iou = chain(emb, self._shard(pts_flat[idx]),
-                                self._shard(lbl_flat[idx]), hw)
+                up, iou = chain(emb, pts_flat[idx], lbl_flat[idx], hw)
             ups.append(up[:nb])
             ious.append(iou[:nb])
         return torch.cat(ups, dim=0), torch.cat(ious, dim=0)
@@ -639,7 +617,7 @@ class SamPt:
         traj = query_points[:, None, :, 1:]  # [frames=M, masks=1, P, 2]
         vis = np.ones(traj.shape[:-1], np.float32)
         logits, _ = self._apply_sam(traj, vis,
-                                    emb_map(lambda e: e[qidx], embeddings),
+                                    tree_map(lambda e: e[qidx], embeddings),
                                     images.shape[1:3])
         threshold = self.sam_predictor.model.mask_threshold
         return (logits[0] > threshold).astype(np.float32)
@@ -730,7 +708,7 @@ class SamPt:
         # torch has no negative strides: the flips are copies.
         traj_l, vis_l, logits_l, spf_l = self._forward_w_reinit_inner(
             images[::-1].copy(), torch.flip(images_dev, [0]),
-            emb_map(lambda e: torch.flip(e, [0]), embeddings), qp_flipped,
+            tree_map(lambda e: torch.flip(e, [0]), embeddings), qp_flipped,
             "backward")
         traj_l, vis_l, logits_l = traj_l[::-1], vis_l[::-1], logits_l[:, ::-1]
         # As in the JAX package and the reference: the backward pass's
@@ -777,13 +755,13 @@ class SamPt:
             if hasattr(self.point_tracker, "set_masks"):
                 self._set_tracker_masks(self.extract_query_masks(
                     images[start:end_tracker], qp_i,
-                    emb_map(lambda e: e[start:end_tracker], embeddings)), m)
+                    tree_map(lambda e: e[start:end_tracker], embeddings)), m)
             traj_i, vis_i = self._track_points(
                 images_dev[start:end_tracker], qp_i)
             traj_i = traj_i[:end - start]
             vis_i = vis_i[:end - start]
             logits_i, spf_i = self._apply_sam(
-                traj_i, vis_i, emb_map(lambda e: e[start:end], embeddings),
+                traj_i, vis_i, tree_map(lambda e: e[start:end], embeddings),
                 (h, w))
             self.reinit_windows.append(
                 (direction, start, end, int(tracked.sum())))

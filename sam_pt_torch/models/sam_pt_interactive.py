@@ -153,7 +153,7 @@ class SamPtInteractive(SamPt):
             interactions_left = interactions_max
 
         images_dev = torch.from_numpy(images).to(self.device)
-        embeddings = self._encode_all_frames(images_dev)
+        embeddings = self._embed(images_dev)
         capacity = n_ppm + interactions_max
 
         if self.disable_point_tracking:

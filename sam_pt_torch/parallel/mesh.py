@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.tree import tree_map
 from .comm import all_gather_cat, group_rank, group_size
 
 
@@ -185,10 +186,10 @@ class BatchSharding:
         self.group = mesh.group(axis)
 
     def shard(self, x):
-        return _tree_map(self._slice, x)
+        return tree_map(self._slice, x)
 
     def gather(self, x):
-        return _tree_map(lambda a: all_gather_cat(a, 0, self.group), x)
+        return tree_map(lambda a: all_gather_cat(a, 0, self.group), x)
 
     def _slice(self, a: torch.Tensor) -> torch.Tensor:
         b = a.shape[0]
@@ -198,14 +199,6 @@ class BatchSharding:
                 f"mesh axis {self.axis!r}: pad it to a multiple first")
         n = b // self.size
         return a[self.index * n:(self.index + 1) * n]
-
-
-def _tree_map(fn, x):
-    """`fn` over a tensor, or over the values of a dict of them (HQ-SAM's
-    {'emb', 'interm'} embeddings)."""
-    if isinstance(x, dict):
-        return {k: fn(v) for k, v in x.items()}
-    return fn(x)
 
 
 def batch_sharding(mesh: Mesh, axis: str = "data") -> BatchSharding:

@@ -105,7 +105,7 @@ def one_point_query_masks(model, images, query_masks, gt_ti_list):
     for mi, (mask, ti) in enumerate(zip(query_masks, gt_ti_list)):
         pt = extract_kmedoid_points(mask, 1)
         frame = torch.from_numpy(images[int(ti)][None]).to(model.device)
-        emb = predictor.encode_frames(frame, (h, w))
+        emb = predictor.decode_ready(predictor.encode_frames(frame, (h, w)))
         low, iou, _ = predictor.predict(emb, pt[None], np.ones((1, 1)),
                                         (h, w))
         logits = predictor.upscale_logits(low[:, 0], (h, w))

@@ -216,7 +216,7 @@ def test_generate_hq_dict_embeddings_equal_jax(monkeypatch):
     seen = _capture(jgen, tgen, monkeypatch)
     image = _image(8)
     emb = tgen._encode(image)
-    assert set(emb) == {"emb", "interm"}
+    assert set(emb) == {"emb", "hq"}  # the features made once a crop
     jrecs = jgen.generate(image)
     trecs = tgen.generate(image)
     _assert_margins(seen, tgen)

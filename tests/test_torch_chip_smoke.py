@@ -445,9 +445,9 @@ def test_amg_tokens_read_from_the_code(hq, monkeypatch):
     from sam_pt_torch.models.sam.mask_decoder import TwoWayTransformer
     from sam_pt_torch.models.sam.predictor import SamPredictor
     from sam_pt_torch.models.sam.sam_model import Sam
-    from sam_pt_torch.models.sam_pt import emb_map
     from sam_pt_torch.utils.checkpoint import randomize_
     from sam_pt_torch.utils.testing import TINY_VIT
+    from sam_pt_torch.utils.tree import tree_map
 
     seen = []
     forward = TwoWayTransformer.forward
@@ -463,7 +463,8 @@ def test_amg_tokens_read_from_the_code(hq, monkeypatch):
                      torch.Generator().manual_seed(0))
     predictor = SamPredictor(sam.eval())
     emb = predictor.encode_frames(torch.zeros((1, 48, 64, 3)), (48, 64))
-    emb = emb_map(lambda e: e.expand(3, *e.shape[1:]), emb)
+    emb = tree_map(lambda e: e.expand(3, *e.shape[1:]),
+                   predictor.decode_ready(emb))
     predictor.predict(emb, torch.ones((3, 1, 2)), torch.ones((3, 1)),
                       (48, 64), multimask_output=True)
     assert [n for n, _ in seen] == [chip_smoke.amg_tokens() + hq]

@@ -65,6 +65,7 @@ SLICE_MODULES = [
     "sam_pt_torch.utils.checkpoint",
     "sam_pt_torch.utils.query_points",
     "sam_pt_torch.utils.util",
+    "sam_pt_torch.utils.tree",
     "sam_pt_torch.vos_eval.eval",
     "sam_pt_torch.config",
     "sam_pt_torch.config.core",

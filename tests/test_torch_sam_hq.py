@@ -64,8 +64,10 @@ def _decoder_pair(pdim, vit_dim, seed):
     # HQ token as a sixth output token
     (256, 1280, 64, 2e-3)], ids=["tiny", "real_width"])
 def test_decoder(pdim, vit_dim, grid, atol):
-    """One decoder call with padded prompts (a box-corner row): the five
-    tokens' masks (atol on logits of order 10) and the IoUs (1e-4)."""
+    """One decoder call with padded prompts (a box-corner row), the port's
+    as it composes it: `image_features` of the early features, then
+    `forward_features`. The five tokens' masks (atol on logits of order
+    10) and the IoUs (1e-4)."""
     jparams, tdec = _decoder_pair(pdim, vit_dim, seed=31)
     rng = np.random.default_rng(32)
     b, n = 2, 6
@@ -79,9 +81,14 @@ def test_decoder(pdim, vit_dim, grid, atol):
     ref_m, ref_iou = JDecoder(transformer_dim=pdim, vit_dim=vit_dim).apply(
         jparams, *(jnp.asarray(a) for a in (emb, pe, sparse, dense, interm,
                                             valid)))
+    emb_t, pe_t, sparse_t, dense_t, interm_t, valid_t = (
+        torch.from_numpy(a) for a in (emb, pe, sparse, dense, interm, valid))
     with torch.no_grad():
-        got_m, got_iou = tdec(*(torch.from_numpy(a) for a in (
-            emb, pe, sparse, dense, interm, valid)))
+        got_m, got_iou = tdec.forward_features(
+            emb_t, pe_t, sparse_t, dense_t,
+            tdec.image_features(emb_t, interm_t), valid_t)
+        with pytest.raises(TypeError, match="forward_features"):
+            tdec(emb_t, pe_t, sparse_t, dense_t, interm_t, valid_t)
     assert got_m.shape == (b, 5, 4 * grid, 4 * grid)
     assert got_iou.shape == (b, 4)
     np.testing.assert_allclose(got_m.numpy(), np.asarray(ref_m), atol=atol,
@@ -109,8 +116,9 @@ def test_select_hq_masks(multimask, hq_token_only):
 def test_sam_hq_encode_and_decode(hq_token_only):
     """The tiny ViT with the HQ decoder through the predictors: the
     {'emb', 'interm'} embeddings (interm: the first global block's output)
-    and the decoded masks of token 0 (HQ) and tokens 1-3 (SAM), with a
-    mask input. Tolerance 1e-4 on embeddings, 2e-3 on logits."""
+    and the masks of token 0 (HQ) and tokens 1-3 (SAM) decoded from
+    them after the feature step (`decode_ready`), with a mask input.
+    Tolerance 1e-4 on embeddings, 2e-3 on logits."""
     sd = random_sam_state_dict(seed=34)
     sd.update(random_hq_state_dict(seed=35, vit_dim=32))
     params = convert_sam_state_dict(sd)
@@ -142,7 +150,8 @@ def test_sam_hq_encode_and_decode(hq_token_only):
     ref_m, ref_iou = jpred._decode(params, ref, jnp.asarray(pts),
                                    jnp.asarray(lbl), jnp.asarray(mask_in),
                                    jnp.ones((2,), bool), only_token0=True)
-    got_m, got_iou = tpred.decode(got, torch.from_numpy(pts),
+    got_m, got_iou = tpred.decode(tpred.decode_ready(got),
+                                  torch.from_numpy(pts),
                                   torch.from_numpy(lbl).long(),
                                   torch.from_numpy(mask_in),
                                   torch.ones(2, dtype=torch.bool),

@@ -10,10 +10,12 @@ system (`Sam(use_hq=True)`), under the configuration's SamPt settings.
   output.
 - The image-level HQ features that `SamPt._hq_features_device` computes
   once a frame: equal to the reference's, and decoding from them equals
-  decoding with `MaskDecoderHQ`'s in-pass computation.
+  decoding from features computed for the pairs' own batch.
+- The decoder refuses the encoder's {'emb', 'interm'}.
 - The 14-pass decode chain's logits and IoUs.
 - A forward computes the features once a frame (the `hq` span's frames,
-  the rows `image_features` sees) and none in the decode chain.
+  the rows `image_features` sees) and none in the decode chain; so do
+  `SamPtInteractive`, and the automatic mask generator once a crop.
 
 The tracker is a stand-in that keeps every point where it was queried:
 the points are the decoder's input here, not what is tested.
@@ -26,7 +28,11 @@ from benchmark.harness import weights
 from benchmark.reference import pipeline_hq as ref
 from benchmark.systems import sam_pt_hq
 from benchmark.tests import tiny
+from sam_pt_torch.models.sam.auto_mask_generator import (
+    SamAutomaticMaskGenerator,
+)
 from sam_pt_torch.models.sam_pt import SamPt
+from sam_pt_torch.models.sam_pt_interactive import SamPtInteractive
 from sam_pt_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -90,7 +96,7 @@ def test_features_once_a_frame_equal_the_in_pass_computation(hq):
         assert _rel(hoisted["hq"][f].permute(2, 0, 1), want) < 1e-5
 
     # the decoder fed the hoisted features, gathered per pair as the chain
-    # gathers them, against MaskDecoderHQ computing them in the pass
+    # gathers them, against features computed from the gathered pairs
     idx = torch.tensor([0, 0, 3, 5, 5, 2])
     rng = np.random.default_rng(6)
     pts = torch.from_numpy(rng.uniform(0, 128, (6, 4, 2)).astype(np.float32))
@@ -98,13 +104,27 @@ def test_features_once_a_frame_equal_the_in_pass_computation(hq):
     mask = torch.from_numpy(rng.standard_normal((6, 32, 32, 1)).astype(
         np.float32))
     valid = torch.ones(6, dtype=torch.bool)
-    in_pass = predictor.decode({k: v[idx] for k, v in emb.items()}, pts, lbl,
-                               mask, valid)
+    pairs = {k: v[idx] for k, v in emb.items()}
+    per_pair = {"emb": pairs["emb"], "hq": predictor.model.mask_decoder
+                .image_features(pairs["emb"], pairs["interm"])}
+    in_pass = predictor.decode(per_pair, pts, lbl, mask, valid)
     once = predictor.decode({k: v[idx] for k, v in hoisted.items()}, pts,
                             lbl, mask, valid)
     # the same layers on the same inputs: the convolutions' batch differs
     for a, b in zip(once, in_pass):
         assert _rel(a, b) < 1e-6
+
+
+@pytest.mark.parametrize("call", ["decode", "predict"])
+def test_decoder_refuses_the_encoders_dict(hq, call):
+    """{'emb', 'interm'} straight from the encoder is not decode-ready: the
+    decoder names the feature step instead of computing it in the pass."""
+    _, _, predictor, frames = hq
+    emb = predictor.encode_frames(frames[:1], (H, W))
+    pts, lbl = torch.full((1, 1, 2), 8.0), torch.ones((1, 1))
+    args = (pts, lbl.long()) if call == "decode" else (pts, lbl, (H, W))
+    with pytest.raises(ValueError, match="hq_features"):
+        getattr(predictor, call)(emb, *args)
 
 
 def test_decode_chain_matches_the_reference(hq):
@@ -164,6 +184,52 @@ def test_forward_computes_the_features_once_a_frame(hq):
     assert {s for _, s in rows} == {"hq"}
     (span,) = [s for s in spans if s["name"] == "hq"]
     assert span["counts"] == {"frames": T, "bytes": T * 32 * 32 * 32 * 4}
+
+
+def _count_feature_rows(decoder):
+    """Patches `decoder.image_features` to record each call's rows; the
+    list of them, and the undo."""
+    rows = []
+    image_features = decoder.image_features
+
+    def counted(emb, interm):
+        rows.append(emb.shape[0])
+        return image_features(emb, interm)
+
+    decoder.image_features = counted
+    return rows, lambda: delattr(decoder, "image_features")
+
+
+@pytest.mark.parametrize("caller", ["interactive", "generator"])
+def test_other_callers_compute_the_features_once_a_frame_or_crop(hq, caller):
+    """`SamPtInteractive` makes the features in chunks of frames, as a
+    forward does, and the generator once a crop (5 crops with one crop
+    layer), never once a decoder pass."""
+    cfg, _, predictor, frames = hq
+    rows, undo = _count_feature_rows(predictor.model.mask_decoder)
+    try:
+        if caller == "interactive":
+            gt = np.zeros((T, 1, H, W), np.float32)
+            gt[:, 0, 8:30, 10:40] = 1
+            model = SamPtInteractive(
+                point_tracker=StillTracker(), sam_predictor=predictor,
+                interactions_max_per_frame=1, disable_point_tracking=True,
+                online=True, save_history=False, **cfg["sam_pt"])
+            model.forward({"image": frames.numpy(), "target_hw": (H, W),
+                           "query_masks": gt[0],
+                           "query_point_timestep": np.zeros(1),
+                           "gt_masks": list(gt)})
+            ec = cfg["sam_pt"]["sam_encode_chunk"]
+            assert model.chain_calls > 1
+            assert rows == [ec] * -(-T // ec)
+        else:
+            generator = SamAutomaticMaskGenerator(
+                predictor, points_per_side=4, points_per_batch=8,
+                crop_n_layers=1)
+            generator.generate(frames[0].numpy())
+            assert rows == [1] * 5
+    finally:
+        undo()
 
 
 def _open_span():

@@ -46,7 +46,6 @@ def test_sam_pt_from_model_config(port_sam_pt):
                    **cfg)
     for key, value in cfg.items():
         assert getattr(sam_pt, key) == value, key
-    assert sam_pt.upload_chunk is None
 
 
 def test_data_parallel_in_one_process_equals_unsharded(port_sam_pt):

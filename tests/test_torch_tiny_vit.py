@@ -79,7 +79,7 @@ def test_encoder(pair, return_interm):
 def test_sam_encode_and_decode(pair):
     """MobileSAM and Light HQ-SAM through the predictors: the antialiased
     resize, the embeddings ({'emb', 'interm'} with HQ), and a decode with
-    padded prompts and a box row."""
+    padded prompts and a box row (HQ's after the feature step)."""
     hq, params, jsam, tsam = pair
     jpred, tpred = JPredictor(jsam, params), TPredictor(tsam)
     rng = np.random.default_rng(43)
@@ -95,7 +95,8 @@ def test_sam_encode_and_decode(pair):
     lbl = np.array([[1, 1, 0, -1], [1, 0, 2, 3]], np.int32)
     ref_m, ref_iou = jpred._decode(params, ref, jnp.asarray(pts),
                                    jnp.asarray(lbl), None, None)
-    got_m, got_iou = tpred.decode(got, torch.from_numpy(pts),
+    got_m, got_iou = tpred.decode(tpred.decode_ready(got),
+                                  torch.from_numpy(pts),
                                   torch.from_numpy(lbl).long())
     np.testing.assert_allclose(got_m.numpy(), np.asarray(ref_m), atol=2e-3,
                                rtol=0)

@@ -28,9 +28,19 @@ Semantics kept from the JAX package:
     over real windows only, global blocks over the cropped grid with
     center-sliced rel-pos tables), and the embedding's pad region is
     zero-filled. It deviates from the reference, as in the JAX package.
+  - The constants a forward reads (`rel_pos_index`, `window_pad_mask`)
+    are built and uploaded once per shape and device, so that no call
+    waits on the host. The video path (`SamPt._encode_all_frames`)
+    captures each encode chunk, from the uint8 frames to the
+    embeddings, as one CUDA graph on CUDA and replays it
+    (`encode_graphs.py`); `SamPtInteractive` encodes its videos there
+    too. The automatic mask generator, the VOS one-point query, a
+    predictor on a mesh and a tensor-parallel encoder call the encoder
+    eagerly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,11 +110,19 @@ def rel_pos_table(rel_pos: torch.Tensor, q_size: int, k_size: int,
         table = resize_bilinear(rel_pos[None, :, :, None],
                                 (max_rel_dist, rel_pos.shape[1]))
         rel_pos = table[0, :, :, 0]
+    return rel_pos[rel_pos_index(q_size, k_size, rel_pos.device)]
+
+
+@functools.lru_cache(maxsize=256)
+def rel_pos_index(q_size: int, k_size: int,
+                  device: torch.device) -> torch.Tensor:
+    """The table's row for each (query, key) pair [q_size, k_size], int64
+    on `device`, built and uploaded once: the gather from the parameter
+    stays in each call, so the table follows the parameter."""
     q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
     k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
     rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    idx = torch.as_tensor(rel.astype(np.int64), device=rel_pos.device)
-    return rel_pos[idx]
+    return torch.as_tensor(rel.astype(np.int64), device=device)
 
 
 class Attention(nn.Module):
@@ -256,10 +274,12 @@ def window_unpartition(x: torch.Tensor, window: int, padded_hw, hw):
     return x[:, :h, :w, :]
 
 
+@functools.lru_cache(maxsize=256)
 def window_pad_mask(batch: int, hw, padded_hw, window: int, device,
                     dtype) -> Optional[torch.Tensor]:
     """[B * nWin, window^2, 1]: 1 on real tokens, 0 on pad slots (None
-    when the grid divides evenly)."""
+    when the grid divides evenly); built and uploaded once per arguments,
+    so it is shared: read it, do not write it."""
     h, w = hw
     hp, wp = padded_hw
     if (hp, wp) == (h, w):

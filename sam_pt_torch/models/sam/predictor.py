@@ -79,16 +79,27 @@ class SamPredictor:
 
     @torch.no_grad()
     def encode_frames(self, images: torch.Tensor,
-                      original_hw: Tuple[int, int]):
+                      original_hw: Tuple[int, int], graphs=None):
         """images [B, H, W, 3] uint8/float RGB at original resolution, on
         the model's device -> embeddings [B, g, g, 256] (with HQ-SAM, the
-        dict of `Sam.encode_images`)."""
+        dict of `Sam.encode_images`).
+
+        `graphs` (an `EncodeGraphs`, for a caller that encodes batches of
+        one shape again and again): on CUDA and off a mesh the batch is the
+        replay of a graph captured at its first call, and the results are
+        the graph's static outputs, good until its next replay. A predictor
+        on a mesh (and so a tensor-parallel encoder) encodes eagerly."""
+        model = self.model
         target_hw = get_longest_side_target_hw(
-            original_hw[0], original_hw[1], self.model.image_size)
+            original_hw[0], original_hw[1], model.image_size)
         def encode(frames):
-            return self.model.encode_images(resize_bilinear(
+            return model.encode_images(resize_bilinear(
                 frames.float(), target_hw, antialias=self.antialias))
 
+        if graphs is not None and self.mesh is None:
+            return graphs(encode, images, (
+                model, model.dtype, model.crop_pad_tokens, model.use_hq,
+                target_hw, self.antialias))
         return self._sharded(encode, images)
 
     @torch.no_grad()

@@ -4,6 +4,7 @@ mask decoder, with the public parameter names (`segment_anything`,
 `segment_anything_hq` for the HQ decoder, MobileSAM's for TinyViT)."""
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,6 +22,14 @@ TINY_VIT_INTERM_DIM = 320
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
+
+
+@functools.lru_cache(maxsize=None)
+def pixel_stats(device: torch.device):
+    """(PIXEL_MEAN, PIXEL_STD) as float32 tensors on `device`, uploaded
+    once."""
+    return (torch.tensor(PIXEL_MEAN, device=device),
+            torch.tensor(PIXEL_STD, device=device))
 
 
 class Sam(nn.Module):
@@ -89,8 +98,7 @@ class Sam(nn.Module):
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """[B, h, w, 3] float RGB 0-255 (longest side already resized) ->
         normalised, zero-padded [B, S, S, 3] in the working dtype."""
-        mean = torch.tensor(PIXEL_MEAN, device=images.device)
-        std = torch.tensor(PIXEL_STD, device=images.device)
+        mean, std = pixel_stats(images.device)
         x = (images.float() - mean) / std
         _, h, w, _ = x.shape
         x = torch.nn.functional.pad(

@@ -109,6 +109,12 @@ def _rel_bias_index(window: int) -> np.ndarray:
     return idxs
 
 
+@functools.lru_cache(maxsize=None)
+def _device_rel_bias_index(window: int, device: torch.device) -> torch.Tensor:
+    """`_rel_bias_index` on `device`, uploaded once."""
+    return torch.as_tensor(_rel_bias_index(window), device=device)
+
+
 class TinyAttention(nn.Module):
     """LeViT attention over a window's tokens: LayerNorm, fused qkv (key
     dim = value dim = dim / heads), a learned bias per head and offset."""
@@ -129,7 +135,7 @@ class TinyAttention(nn.Module):
         heads, kd = self.num_heads, self.key_dim
         qkv = self.qkv(self.norm(x)).reshape(b, n, heads, 3 * kd)
         q, k, v = qkv.permute(0, 2, 1, 3).split(kd, dim=-1)
-        idx = torch.as_tensor(_rel_bias_index(self.window), device=x.device)
+        idx = _device_rel_bias_index(self.window, x.device)
         bias = self.attention_biases[:, idx].to(x.dtype)  # [heads, L, L]
         attn = (q @ k.transpose(-1, -2)) * kd ** -0.5 + bias[None]
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)

@@ -62,6 +62,7 @@ from ..parallel.mesh import batch_sharding, check_mesh, create_mesh
 from ..utils import tracing
 from ..utils.tree import leading_size, pad_last, tree_map
 from ..utils.util import PointVisibilityType
+from .sam.encode_graphs import EncodeGraphs
 from .sam.predictor import SamPredictor
 from .tracker.api import PointTracker
 
@@ -174,6 +175,9 @@ class SamPt:
         self.mesh = mesh
         self._data_sharding = None
         self.logits_dtype = logits_dtype
+        # The video path's encode chunks, one CUDA graph a shape
+        # (`_encode_all_frames`); None encodes eagerly.
+        self.encode_graphs: Optional[EncodeGraphs] = EncodeGraphs()
         self.rng = np.random.default_rng(seed)
         # (direction, start, end, tracked masks) of every horizon window the
         # last re-initialising forward decoded, for inspection.
@@ -363,24 +367,38 @@ class SamPt:
         """`fn(chunk, n)` over `frames` [T, ...] (a tensor or a dict of
         them) in chunks of `sam_encode_chunk`, the last padded with its
         final frame; `fn` returns its chunk's first `n` results, which are
-        concatenated."""
+        copied into the [T, ...] results before the next chunk runs (so
+        they may be a graph's static outputs)."""
         ec = self.sam_encode_chunk
-        out = []
-        for i in range(0, leading_size(frames), ec):
+        t = leading_size(frames)
+        out = None
+        for i in range(0, t, ec):
             chunk = tree_map(lambda e: e[i:i + ec], frames)
-            out.append(fn(pad_last(chunk, ec), leading_size(chunk)))
-        return tree_map(lambda *c: torch.cat(c, dim=0), *out)
+            n = leading_size(chunk)
+            res = fn(pad_last(chunk, ec), n)
+            if out is None:
+                out = tree_map(lambda r: r.new_empty((t, *r.shape[1:])), res)
+            tree_map(lambda o, r: o[i:i + n].copy_(r), out, res)
+        return out
 
     def _encode_all_frames(self, images_dev: torch.Tensor):
         """[T, H, W, 3] uint8 -> [T, g, g, 256] (with HQ-SAM, the
         encoder's {'emb', 'interm'} of such), in chunks of
-        `sam_encode_chunk` frames."""
+        `sam_encode_chunk` frames. On CUDA each chunk, from the uint8
+        frames to the embeddings, is the replay of one CUDA graph
+        (`encode_graphs`, captured at the first chunk of a shape), so the
+        device never waits on the host inside the encoder and the host's
+        next work (query sampling) runs while it encodes; so does
+        `SamPtInteractive`'s. Eager: a predictor on a mesh (data or tensor
+        parallel), and the encoder's other callers (the automatic mask
+        generator, the VOS one-point query), whose shapes come once."""
         t, h, w, _ = images_dev.shape
         ec = self.sam_encode_chunk
 
         def encode(chunk, n):
             with tracing.span("encode.chunk", frames=n, padded_frames=ec - n):
-                emb = self.sam_predictor.encode_frames(chunk, (h, w))
+                emb = self.sam_predictor.encode_frames(
+                    chunk, (h, w), graphs=self.encode_graphs)
                 emb = tree_map(lambda e: e[:n], emb)
                 if self.sam_predictor.model.use_hq:
                     tracing.count("interm_bytes", emb["interm"].nbytes)

@@ -15,7 +15,8 @@ Dispatch rule of every wrapper: a tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises. The kernels take
 bfloat16 (the main path's dtype) at the shapes SAM gives them: head dims a
 multiple of 16 up to 128 for K1/K2/K4, 16 for K3. The wrappers count their
-launches in `LAUNCHES` (only the CUDA path counts).
+launches in `LAUNCHES` (only the CUDA path counts); K1's and K2's in a
+CUDA graph when its replay announces them (`graph_launches.py`).
 
 The decomposed rel-pos bias of K1/K2/K4 is computed before the kernel by two
 einsums in the input dtype (float32 accumulation, one rounding at the
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 
 from ..utils import tracing
+from . import graph_launches
 
 LAUNCHES = {"window": 0, "global": 0, "cross": 0, "relpos": 0}
 # The most tokens the window body (K1, and K4 below 1024 tokens) takes.
@@ -110,7 +112,13 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, *,
 
 def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor, *,
                           scale: float, heads: int) -> torch.Tensor:
-    """K1 kernel launch (sam_pt_torch/csrc/window_attention.cu)."""
+    """K1 kernel launch (sam_pt_torch/csrc/window_attention.cu); a graph
+    replay's announcement (`graph_launches.py`) counts it and returns
+    None."""
+    if graph_launches.announced(__name__, "window_attention_cuda", qkv,
+                                bias, scale=scale, heads=heads):
+        LAUNCHES["window"] += 1
+        return None
     from ._cuda import check, library
 
     _check_cuda("window_attention", (qkv, bias))
@@ -186,7 +194,14 @@ def global_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, *,
 def global_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor, *,
                           scale: float, heads: int, kh: int,
                           kw: int) -> torch.Tensor:
-    """K2 kernel launch (sam_pt_torch/csrc/global_attention.cu)."""
+    """K2 kernel launch (sam_pt_torch/csrc/global_attention.cu); a graph
+    replay's announcement (`graph_launches.py`) counts it and returns
+    None."""
+    if graph_launches.announced(__name__, "global_attention_cuda", qkv,
+                                bias, scale=scale, heads=heads, kh=kh,
+                                kw=kw):
+        LAUNCHES["global"] += 1
+        return None
     from ._cuda import check, library
 
     _check_cuda("global_attention", (qkv, bias))

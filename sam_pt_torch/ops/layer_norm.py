@@ -17,7 +17,8 @@ wide launches the kernel, or raises; wider rows (the ViT blocks' 768 to
 device take the plain version, so the CPU computes what it always did.
 The kernel's launches are counted in `LAUNCHES` (only the CUDA path
 counts) and, with the tracer on, as `ln.launches` and `ln.rows` in the
-open span.
+open span; those a CUDA graph replays, when the replay announces them
+(`graph_launches.py`).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import tracing
+from . import graph_launches
 
 LAUNCHES = {"layer_norm": 0}
 # The widest rows the kernel takes (a warp of 16-byte vectors in bf16).
@@ -81,7 +83,13 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     strides), weight and bias [C] contiguous in x's dtype. Returns a
     contiguous tensor of x's shape. The decode chain queues a dozen of
     these a pass from the host, so the checks are cheap ones and the
-    stream is read raw."""
+    stream is read raw. A graph replay's announcement
+    (`graph_launches.py`) counts it and returns None."""
+    if graph_launches.announced(__name__, "layer_norm_cuda", x, weight,
+                                bias, eps, gelu):
+        if x.numel():
+            _count(row_layout(x)[0])
+        return None
     if not _ENTRY:
         from ._cuda import library
 
@@ -114,11 +122,15 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
         _ENTRY[1](device))
     if status:
         raise RuntimeError(f"sam_layer_norm: CUDA error {status} at launch")
+    _count(rows)
+    return out
+
+
+def _count(rows: int) -> None:
     LAUNCHES["layer_norm"] += 1
     if tracing.enabled():
         tracing.count("ln.launches")
         tracing.count("ln.rows", rows)
-    return out
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -55,6 +55,18 @@ def enabled() -> bool:
     return _timer is not None
 
 
+@contextlib.contextmanager
+def paused():
+    """Nothing recorded inside: work whose counts are made elsewhere (a
+    CUDA graph's warm-up and capture, whose replays count)."""
+    global _timer
+    timer, _timer = _timer, None
+    try:
+        yield
+    finally:
+        _timer = timer
+
+
 def span(name: str, *, video=None, device=None, **counts):
     """A context manager: the span `name` with its initial `counts`.
     `video` (the id of the video the work is for) and `device` (a

@@ -19,6 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
     "sam_pt_torch.build",
     "sam_pt_torch.ops.flash_attention",
+    "sam_pt_torch.ops.graph_launches",
     "sam_pt_torch.ops._cuda",
     "sam_pt_torch.ops.posemb",
     "sam_pt_torch.ops.resize",
@@ -32,6 +33,7 @@ SLICE_MODULES = [
     "sam_pt_torch.models.sam.tiny_vit",
     "sam_pt_torch.models.sam.sam_model",
     "sam_pt_torch.models.sam.predictor",
+    "sam_pt_torch.models.sam.encode_graphs",
     "sam_pt_torch.models.sam.factory",
     "sam_pt_torch.models.tracker",
     "sam_pt_torch.models.tracker.api",
